@@ -1,6 +1,6 @@
 /* sdslam_tpu._native: host-side runtime support in C.
  *
- * The reference implements its entire runtime natively (C++11); in the TPU
+ * The reference implements its entire runtime natively (C++11); in this
  * re-architecture the compute path is JAX/XLA, and the native layer owns the
  * host-side hot paths around it:
  *   - associate():  O(n log n) two-pointer nearest-timestamp association of

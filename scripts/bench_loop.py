@@ -11,7 +11,7 @@ Sim3 verification async, corrections applied at drain time) and once OFF —
 and reports the fps delta. Done = the async design costs <5% at capture
 time.
 
-Run ALONE on TPU, generous timeout: python scripts/bench_loop.py
+Run alone on the card (one process per card): python scripts/bench_loop.py
 """
 
 import sys
@@ -28,11 +28,9 @@ WARMUP = 6
 
 
 def main():
-    import jax
+    from sdslam_tpu.utils import compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    compile_cache.enable()
 
     from sdslam_tpu.geometry.camera import CameraModel
     from sdslam_tpu.io.synthetic import SyntheticSequence, circuit_trajectory

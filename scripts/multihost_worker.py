@@ -3,7 +3,8 @@
 Usage: python scripts/multihost_worker.py <process_id> <num_processes> <port>
 
 Each process owns 4 virtual CPU devices; the global mesh spans 8 devices
-across both processes (localhost TCP = the DCN stand-in). Both processes
+across both processes (localhost TCP stands in for the network between
+hosts). Both processes
 build the SAME synthetic BA + pose-graph problems from a fixed seed, run the
 distributed solvers over the process-spanning mesh, and process 0 checks the
 result against the single-device solvers bit-for-tolerance. PASS on stdout

@@ -1,14 +1,10 @@
-"""sdslam_tpu: TPU-native semi-direct SLAM (JAX/XLA/Pallas).
+"""sdslam_tpu: semi-direct SLAM in JAX (JAX/XLA, Pallas kernels on CUDA).
 
-On TPU, float32 `@`/einsum default to bf16 MXU passes (~1e-3 relative
-error). Pose chains, Schur reductions, and one-hot gather matmuls need full
-f32: a 4x4 pose product loses orthonormality at ~1e-4 per multiply in bf16
-and the error compounds across frames. The framework therefore defaults all
-f32 matmuls to full precision; the deliberately-bf16 hot kernels (Hamming
-popcount, patch sampling, covisibility incidence) opt in explicitly via
-`preferred_element_type`/bf16 inputs, which this default does not affect.
+Precision: a GPU runs a float32 product in TF32 (~3 decimal digits) unless
+a precision is asked for. Pose chains, Schur reductions, normal equations
+and one-hot gather matmuls need full float32 — a 4x4 pose product would lose
+orthonormality at ~1e-4 per multiply and the error would compound across
+frames — so every such product states `precision=HIGHEST` (`geometry.lie.mm`
+for matrix products). Exact-by-construction products (0/1 incidence
+matrices in bf16, integer Hamming terms) state their own dtypes.
 """
-
-import jax as _jax
-
-_jax.config.update("jax_default_matmul_precision", "highest")

@@ -3,7 +3,7 @@
 Each routine is a dense masked computation over fixed-capacity arrays:
 project -> geometric gating mask -> masked Hamming matrix -> per-query best
 -> per-target conflict resolution -> rotation-consistency filter.  This is
-the TPU-native shape of the reference's 9 windowed searches
+the array form of the reference's 9 windowed searches
 (/root/reference/src/ORBmatcher.cc: SearchByProjection x4, Fuse x2,
 SearchForInitialization, SearchForTriangulation, SearchByPoints).
 """

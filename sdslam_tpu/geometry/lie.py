@@ -1,4 +1,4 @@
-"""Lie-group math for SO(3) / SE(3) / Sim(3) on TPU (float32, batched).
+"""Lie-group math for SO(3) / SE(3) / Sim(3) (float32, batched).
 
 Replaces the reference's Eigen/g2o Lie machinery (se3quat.h, sim3.h,
 ImageAlign.cc:473-499 `Exp`, ConstantVelocity.cc:161-238 `Exp/Log`) with a
@@ -25,13 +25,14 @@ import jax.numpy as jnp
 
 _EPS = 1e-8
 
-# Small 3x3 products must not fall back to the TPU's bf16 matmul default:
-# pose math needs full f32. (Hot large-matmul kernels opt into bf16 explicitly.)
+# Pose, rotation and normal-equation products run at full float32: a GPU
+# runs a float32 product in TF32 (~3 decimal digits) unless told otherwise.
 _einsum = functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
 
-def _mm(a, b):
-    return _einsum("...ij,...jk->...ik", a, b)
+def mm(a, b):
+    """`a @ b` at full float32 precision (matmul broadcasting rules)."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def _small(theta2):
@@ -95,8 +96,8 @@ def quat_to_mat(q):
 def mat_to_quat(R):
     """Rotation matrix [...,3,3] -> quaternion [w,x,y,z], branch-free.
 
-    Uses the 4-candidate trace method with jnp.where selection (TPU friendly,
-    no data-dependent control flow).
+    Uses the 4-candidate trace method with jnp.where selection (no
+    data-dependent control flow).
     """
     m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
     m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
@@ -150,7 +151,7 @@ def so3_exp(phi):
     theta2 = jnp.sum(phi * phi, axis=-1)
     theta = jnp.sqrt(jnp.maximum(theta2, 0.0))
     K = hat(phi)
-    K2 = _mm(K, K)
+    K2 = mm(K, K)
     # sin(t)/t and (1-cos t)/t^2 with series fallback
     a = jnp.where(_small(theta2), 1.0 - theta2 / 6.0, jnp.sin(theta) / jnp.maximum(theta, _EPS))
     b = jnp.where(_small(theta2), 0.5 - theta2 / 24.0, (1.0 - jnp.cos(theta)) / jnp.maximum(theta2, _EPS))
@@ -194,7 +195,7 @@ def so3_left_jacobian(phi):
     theta2 = jnp.sum(phi * phi, axis=-1)
     theta = jnp.sqrt(jnp.maximum(theta2, 0.0))
     K = hat(phi)
-    K2 = _mm(K, K)
+    K2 = mm(K, K)
     b = jnp.where(_small(theta2), 0.5 - theta2 / 24.0, (1.0 - jnp.cos(theta)) / jnp.maximum(theta2, _EPS))
     c = jnp.where(
         _small(theta2),
@@ -209,7 +210,7 @@ def so3_left_jacobian_inv(phi):
     theta2 = jnp.sum(phi * phi, axis=-1)
     theta = jnp.sqrt(jnp.maximum(theta2, 0.0))
     K = hat(phi)
-    K2 = _mm(K, K)
+    K2 = mm(K, K)
     half_theta = 0.5 * theta
     # coefficient: 1/theta^2 * (1 - theta sin / (2(1-cos)))
     cot = half_theta * jnp.cos(half_theta) / jnp.maximum(jnp.sin(half_theta), _EPS)
@@ -316,7 +317,7 @@ def _sim3_W(phi, sigma):
     theta = jnp.sqrt(jnp.maximum(theta2, 0.0))
     s = jnp.exp(sigma)
     K = hat(phi)
-    K2 = _mm(K, K)
+    K2 = mm(K, K)
     eps_sig = jnp.abs(sigma) < 1e-5
     eps_th = theta < 1e-5
 

@@ -13,6 +13,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from sdslam_tpu import native
+
 
 def _load_image(path: str) -> np.ndarray:
     """Grayscale float32 image via PIL (cv2 also works; PIL keeps the dep
@@ -46,19 +48,16 @@ def associate(
 ) -> List[Tuple[float, str, float, str]]:
     """Nearest-timestamp association (associate.py semantics).
 
-    Uses the native O(n log n) implementation (sdslam_tpu._native) when the
-    C extension is built; falls back to pure Python otherwise."""
-    try:
-        from sdslam_tpu import _native
-
+    Uses the native O(n log n) implementation (sdslam_tpu.native) when the
+    C extension builds; falls back to pure Python otherwise."""
+    _native = native.load()
+    if _native is not None:
         pairs = _native.associate(
             [t for t, _ in a], [t for t, _ in b], max_difference, offset
         )
         return sorted(
             (a[ia][0], a[ia][1], b[ib][0], b[ib][1]) for ia, ib in pairs
         )
-    except ImportError:
-        pass
     pairs = []
     for ta, pa in a:
         for tb, pb in b:
@@ -116,11 +115,8 @@ class TUMRGBDDataset:
 
         raw=True yields (ts, img u8, depth u16 raw counts) — the tracker's
         packed ingest dtypes; otherwise (ts, img f32, depth f32 meters)."""
-        try:
-            from sdslam_tpu import _native
-
-            _native.prefetcher_new
-        except (ImportError, AttributeError):
+        _native = native.load()
+        if _native is None or not hasattr(_native, "prefetcher_new"):
             for ts, img, dep in self:
                 if raw:
                     yield ts, img.astype(np.uint8), (
@@ -282,7 +278,7 @@ def write_tum_sequence(root: str, frames, poses_Tcw, depth_factor: float = 5000.
     The exporter counterpart of TUMRGBDDataset: it exercises the REAL
     dataset path (PNG decode, list parsing, nearest-timestamp association,
     ground-truth alignment) without network access — the reference can only
-    be validated on downloaded TUM sequences (README.md:47-52); the TPU
+    be validated on downloaded TUM sequences (README.md:47-52); this
     build ships its own generator so the end-to-end CLI path is testable
     everywhere (VERDICT round-1, item 8).
 

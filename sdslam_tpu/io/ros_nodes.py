@@ -1,6 +1,6 @@
 """ROS node layer: topic transport for the streaming front-end.
 
-TPU-native equivalent of the reference's rosbuild package
+Equivalent of the reference's rosbuild package
 (/root/reference/Examples/ROS/SD-SLAM/src/{ros_monocular,ros_rgbd,
 ros_fusion}.cc): three nodes that subscribe to configurable image / depth /
 IMU topics, feed the SLAM system, and publish `/sdslam/odom`
@@ -8,7 +8,8 @@ IMU topics, feed the SLAM system, and publish `/sdslam/odom`
 odometry with the ORIGINAL image timestamps so TUM evaluation lines up with
 groundtruth (Config::UseImagesTimeStamps, ros_rgbd.cc:107-175).
 
-ROS itself is OPTIONAL here (TPU pods don't run roscore): all sync and
+ROS itself is OPTIONAL here (headless accelerator hosts rarely run
+roscore): all sync and
 tracking logic lives in ros-free `io/stream.py`; this module is only the
 transport shim. `rospy` is imported lazily at node start, and every node
 accepts an injected rospy-compatible module so the wiring is unit-testable

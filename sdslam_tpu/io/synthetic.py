@@ -21,6 +21,10 @@ import numpy as np
 from sdslam_tpu.geometry import lie
 from sdslam_tpu.geometry.camera import CameraModel
 
+# full float32 ray/plane products: a GPU would otherwise run them in TF32
+# and the rendered depth would carry millimetre-level rounding
+_einsum = functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
+
 
 class PlaneScene(NamedTuple):
     """Textured scene: infinite room planes n·x = d plus bounded interior
@@ -130,8 +134,8 @@ def make_room_scene(
 
 def scene_intensity(scene: PlaneScene, X, plane_idx):
     """Procedural texture value in [0,1]-ish at world points X [...,3]."""
-    phase = jnp.einsum("...i,ki->...k", X, scene.freqs) + scene.phases
-    tex = jnp.einsum("...k,k->...", jnp.sin(phase), scene.amps)
+    phase = _einsum("...i,ki->...k", X, scene.freqs) + scene.phases
+    tex = _einsum("...k,k->...", jnp.sin(phase), scene.amps)
     # soft contrast sharpening: strengthens gradients/corners while keeping
     # the intensity field analytic (no aliasing from hard edges)
     return scene.biases[plane_idx] + 0.45 * jnp.tanh(1.0 * tex)
@@ -148,10 +152,10 @@ def render(scene: PlaneScene, cam: CameraModel, Tcw):
     v = jnp.arange(H, dtype=jnp.float32)[:, None].repeat(W, 1)
     # unnormalized camera-ray with z=1 so the ray parameter equals depth
     dc = jnp.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy, jnp.ones_like(u)], -1)
-    dw = jnp.einsum("ij,hwj->hwi", Rwc, dc)  # [H,W,3]
+    dw = _einsum("ij,hwj->hwi", Rwc, dc)  # [H,W,3]
 
-    n_dot_o = jnp.einsum("pi,i->p", scene.normals, twc)  # [P]
-    n_dot_d = jnp.einsum("pi,hwi->hwp", scene.normals, dw)  # [H,W,P]
+    n_dot_o = _einsum("pi,i->p", scene.normals, twc)  # [P]
+    n_dot_d = _einsum("pi,hwi->hwp", scene.normals, dw)  # [H,W,P]
     t = (scene.offsets[None, None, :] - n_dot_o[None, None, :]) / jnp.where(
         jnp.abs(n_dot_d) < 1e-6, 1e-6, n_dot_d
     )
@@ -161,15 +165,15 @@ def render(scene: PlaneScene, cam: CameraModel, Tcw):
     ru, rv = scene.rect_u, scene.rect_v  # [B,3]
     rn = jnp.cross(ru, rv)
     rn = rn / jnp.linalg.norm(rn, axis=-1, keepdims=True)
-    num = jnp.einsum("bi,bi->b", rn, scene.rect_origin - twc[None, :])  # [B]
-    den = jnp.einsum("bi,hwi->hwb", rn, dw)
+    num = _einsum("bi,bi->b", rn, scene.rect_origin - twc[None, :])  # [B]
+    den = _einsum("bi,hwi->hwb", rn, dw)
     tr_ = num[None, None, :] / jnp.where(jnp.abs(den) < 1e-6, 1e-6, den)
     hit = twc[None, None, None, :] + tr_[..., None] * dw[:, :, None, :]  # [H,W,B,3]
     rel = hit - scene.rect_origin[None, None, :, :]
-    au = jnp.einsum("hwbi,bi->hwb", rel, ru) / jnp.maximum(
+    au = _einsum("hwbi,bi->hwb", rel, ru) / jnp.maximum(
         jnp.sum(ru * ru, -1)[None, None, :], 1e-9
     )
-    av = jnp.einsum("hwbi,bi->hwb", rel, rv) / jnp.maximum(
+    av = _einsum("hwbi,bi->hwb", rel, rv) / jnp.maximum(
         jnp.sum(rv * rv, -1)[None, None, :], 1e-9
     )
     inside = (jnp.abs(au) <= 1.0) & (jnp.abs(av) <= 1.0) & (tr_ > 1e-3)

@@ -1,6 +1,6 @@
 """Local mapping: observation fusion, map-point culling, keyframe culling.
 
-TPU-native equivalents of the LocalMapping thread's map-maintenance passes
+Array equivalents of the LocalMapping thread's map-maintenance passes
 (/root/reference/src/LocalMapping.{h,cc}):
 
   fuse_neighbors     <- SearchInNeighbors (LocalMapping.cc:422-511) +
@@ -122,7 +122,7 @@ def fuse_neighbors(
     """SearchInNeighbors: two-way observation fusion between a keyframe and
     its top covisible neighbors.
 
-    TPU shape: direction A is one projection search; direction B's
+    Shape: direction A is one projection search; direction B's
     per-neighbor searches are VMAPPED into a single batched search (they
     read the same pre-fuse map, so they are independent; the sequential
     variant spent 3x the kernel time for a rarely-different result). The
@@ -230,8 +230,7 @@ def cull_keyframes(
     kf_safe = jnp.clip(obs_kf, 0, ms.K - 1)
     kp_safe = jnp.clip(obs_kp, 0, ms.N - 1)
     oct_obs = ms.kf_octave[kf_safe, kp_safe]  # [P,M]
-    # pack (kf, octave) so the [R,N,M] expansion is ONE gather (each
-    # arbitrary-index gather costs ~10 ns/element on TPU)
+    # pack (kf, octave) so the [R,N,M] expansion is ONE gather
     pack_pm = jnp.where(
         obs_kf >= 0, (obs_kf + 1) * 16 + jnp.clip(oct_obs, 0, 15), 0
     )
@@ -276,13 +275,13 @@ def _fundamental_from_poses(cam: CameraModel, T1w, T2w):
     """F12 such that x2^T F12 x1 = 0 (ComputeF12, LocalMapping.cc:~470)."""
     # F maps image-1 points to epipolar lines in image 2: built from the
     # relative transform T21 = T2w * T1w^-1
-    T21 = T2w @ lie.se3_inv(T1w)
+    T21 = lie.mm(T2w, lie.se3_inv(T1w))
     R21 = T21[:3, :3]
     t21 = T21[:3, 3]
     K = cam.K
     Kinv = jnp.linalg.inv(K)
-    E = lie.hat(t21) @ R21
-    return Kinv.T @ E @ Kinv
+    E = lie.mm(lie.hat(t21), R21)
+    return lie.mm(lie.mm(Kinv.T, E), Kinv)
 
 
 @functools.partial(
@@ -333,8 +332,8 @@ def triangulate_new_points(
         ones = jnp.ones((ms.N, 1))
         p1h = jnp.concatenate([uv1, ones], -1)
         p2h = jnp.concatenate([ms.kf_uv_und[nb], ones], -1)
-        lines2 = p1h @ F12.T  # line of kp1 in image 2
-        num = jnp.abs(jnp.einsum("ni,mi->nm", lines2, p2h))  # [N1,N2]
+        lines2 = lie.mm(p1h, F12.T)  # line of kp1 in image 2
+        num = jnp.abs(jnp.einsum("ni,mi->nm", lines2, p2h, precision=jax.lax.Precision.HIGHEST))  # [N1,N2]
         den = jnp.sqrt(
             jnp.maximum(lines2[:, 0] ** 2 + lines2[:, 1] ** 2, 1e-9)
         )[:, None]
@@ -351,8 +350,8 @@ def triangulate_new_points(
         j = jnp.clip(jbest, 0, ms.N - 1)
 
         # triangulate candidate pairs
-        P1 = K_mat @ T1[:3, :4]
-        P2 = K_mat @ T2[:3, :4]
+        P1 = lie.mm(K_mat, T1[:3, :4])
+        P2 = lie.mm(K_mat, T2[:3, :4])
         Xw = dlt(P1, P2, uv1, ms.kf_uv_und[nb][j])
         Xc1 = lie.se3_apply(T1, Xw)
         Xc2 = lie.se3_apply(T2, Xw)

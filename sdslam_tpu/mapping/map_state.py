@@ -1,6 +1,6 @@
 """Array-resident SLAM map: fixed-capacity SoA pools + derived structures.
 
-TPU-native replacement for the reference's pointer-graph data model
+Array replacement for the reference's pointer-graph data model
 (/root/reference/src/{Map,KeyFrame,MapPoint}.{h,cc}).  Design rules:
 
   * Fixed-capacity pools with validity masks (keyframes [K], points [P]);
@@ -12,7 +12,7 @@ TPU-native replacement for the reference's pointer-graph data model
     representative descriptors are all *derived* batched computations — the
     reference's dual bookkeeping (MapPoint::mObservations + KeyFrame vectors,
     kept consistent by hand under 3 mutexes) collapses into segment ops.
-  * Covisibility = one bf16 incidence matmul on the MXU
+  * Covisibility = one bf16 incidence matmul
     (counts[k1,k2] = #shared points), replacing KeyFrame::UpdateConnections
     (KeyFrame.cc:282-366) pointer walks.
 
@@ -186,10 +186,10 @@ def incidence_matrix(ms: MapState, dtype=jnp.bfloat16):
 def covisibility(ms: MapState, inc=None):
     """[K,K] int32 shared-observation counts (diagonal zeroed).
 
-    One MXU matmul over the incidence matrix — the TPU-native
+    One matmul over the incidence matrix — the array form of
     KeyFrame::UpdateConnections. Pass a precomputed `inc` to share the
-    [K*N]-element incidence scatter (~0.65 ms at 64x1024 pools — the
-    single biggest fixed cost of every consumer) across the derived
+    [K*N]-element incidence scatter (the single biggest fixed cost of every
+    consumer) across the derived
     structures of one mapping pass."""
     if inc is None:
         inc = incidence_matrix(ms)
@@ -233,8 +233,7 @@ def obs_lists_from_table(obs, P: int, max_obs: int = 16):
     Fully parallel rank-scatter: the rank of observation (row r, point p) is
     the exclusive row-cumsum of a [R, P] incidence-count matrix — one
     scatter-add + one small cumsum + one scatter, no sequential loop and no
-    [R*N] sort (TPU sorts are bitonic, ~10 ms at 64k elements; the previous
-    R-step fori_loop serialized ~R scatter rounds). Within-row duplicate
+    [R*N] sort (a previous R-step fori_loop serialized ~R scatter rounds). Within-row duplicate
     bindings of one point (possible after fuse) keep only the first keypoint
     — benign for every consumer (they are edges of the same point).
     """
@@ -245,9 +244,8 @@ def obs_lists_from_table(obs, P: int, max_obs: int = 16):
     rows = jnp.broadcast_to(jnp.arange(R, dtype=jnp.int32)[:, None], (R, N))
     kps = jnp.broadcast_to(jnp.arange(N, dtype=jnp.int32)[None, :], (R, N))
     # first keypoint of each (row, point) pair: scatter-min of kp index.
-    # This ONE scatter also yields the incidence (first_kp < N) — arbitrary-
-    # index scatters/gathers cost ~10 ns/element on TPU, so every table op
-    # here is packed to run once.
+    # This ONE scatter also yields the incidence (first_kp < N): every
+    # table op here is packed to run once.
     first_kp = jnp.full((R, P), N, jnp.int32).at[
         rows.ravel(), jnp.where(ok, ps, 0).ravel()
     ].min(jnp.where(ok, kps, N).ravel(), mode="drop")
@@ -281,8 +279,8 @@ def build_obs_lists(ms: MapState, max_obs: int = 16):
 
 
 def compact_indices(mask, L: int):
-    """O(P) cumsum compaction of a boolean mask into L slots (top_k is a
-    bitonic sort on TPU — ~10x dearer at pool size). Returns
+    """O(P) cumsum compaction of a boolean mask into L slots (cheaper than
+    a top_k sort at pool size). Returns
     (idx [L] original ids (clipped), in_mask [L], remap [P] -> compact or -1).
     Entries beyond L are dropped (callers treat overflow as
     handled-next-pass)."""
@@ -603,8 +601,7 @@ def replace_points(ms: MapState, replace_map) -> MapState:
 
     The redirect and the liveness scrub are folded into ONE per-point code
     array gathered once at the [K,N] table (the redirect-then-remove
-    formulation paid two ~65k-element arbitrary gathers; each costs
-    ~10 ns/element on TPU)."""
+    formulation paid two ~65k-element arbitrary gathers)."""
     P = ms.P
     idx = jnp.arange(P, dtype=jnp.int32)
     killed = replace_map >= 0

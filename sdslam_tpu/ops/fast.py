@@ -4,7 +4,7 @@ Replaces the per-cell OpenCV `FAST` calls in ORBextractor::ComputeKeyPoints
 (/root/reference/src/ORBextractor.cc:466-610).  Instead of iterating cells on
 the host, we compute the full dense FAST score map in one shot (16 shifted
 images + windowed circular minima), 3x3 non-max suppression, then do
-spatially-stratified top-k selection — the TPU-native equivalent of the
+spatially-stratified top-k selection — the array equivalent of the
 reference's per-cell quota redistribution.
 
 Score definition: the maximum threshold t for which the pixel is still a
@@ -86,8 +86,8 @@ def subpixel_refine(score, uv):
     the 3x3 score neighborhood. uv: [N,2] integer-valued float coords.
 
     The reference keeps integer FAST corners (OpenCV behavior); subpixel
-    localization measurably reduces the pose-estimation noise floor, so the
-    TPU build refines by default."""
+    localization measurably reduces the pose-estimation noise floor, so
+    this build refines by default."""
     from sdslam_tpu.ops import orb as orb_ops
 
     H, W = score.shape

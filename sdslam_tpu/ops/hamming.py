@@ -2,8 +2,8 @@
 
 Replaces ORBmatcher's popcount loop + per-point candidate iteration
 (/root/reference/src/ORBmatcher.cc:1459-1473 DescriptorDistance, and the
-windowed searches built on it) with dense masked [Q, T] distance matrices:
-one XOR+popcount broadcast (VPU) instead of pointer-chasing per candidate.
+windowed searches built on it) with dense masked [Q, T] distance matrices
+instead of pointer-chasing per candidate.
 
 Conventions: descriptors are [N, 8] uint32 (256 bits).  Invalid slots must be
 masked by the caller; distances at masked entries are BIG.
@@ -19,23 +19,6 @@ TH_HIGH = 100  # loose match threshold (ORBmatcher.cc:37)
 HISTO_BINS = 30  # rotation-consistency histogram bins (ORBmatcher.cc:38)
 BIG = 1 << 20  # sentinel distance for masked entries
 
-# MXU gate for the dense distance matrix (r5, slope-timed on TPU —
-# scripts/diag_hamming.py): the VPU xor+popcount path runs at its COMPUTE
-# speed-of-light (~47 Gpair/s ~ 1.1 T-op/s ~ VPU peak; ~23 int ops/pair),
-# while unpacking descriptors to 0/1 int8 ONCE and taking one 256-deep
-# int8 MXU matmul (pop(a^b) = pa + pb - 2*dot(bits_a, bits_b)) measures
-# 170-476 Gpair/s — 1.3x at 1k x 1k, 10x at 1k x 8k / 4k x 4k. The Pallas
-# in-kernel-unpack variant (ops/pallas/hamming_kernel.py) LOSES 3-4x to
-# both (re-unpacks each tile per grid step); it stays as a parity-tested
-# reference. "auto" = MXU path on TPU, VPU path elsewhere (CPU oracle).
-_MXU_HAMMING = "auto"
-
-
-def _mxu_enabled() -> bool:
-    if _MXU_HAMMING == "auto":
-        return jax.devices()[0].platform == "tpu"
-    return bool(_MXU_HAMMING)
-
 
 def _unpack_bits_i8(d):
     """[N,8] uint32 -> [N,256] int8 in {0,1}."""
@@ -45,19 +28,20 @@ def _unpack_bits_i8(d):
 
 
 def hamming_matrix(da, db):
-    """[Qa,8] x [Qb,8] uint32 -> [Qa,Qb] int32 Hamming distances."""
-    if _mxu_enabled():
-        ba = _unpack_bits_i8(da)
-        bb = _unpack_bits_i8(db)
-        dot = jax.lax.dot_general(
-            ba, bb, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
-        pa = jnp.sum(ba.astype(jnp.int32), axis=1)
-        pb = jnp.sum(bb.astype(jnp.int32), axis=1)
-        return pa[:, None] + pb[None, :] - 2 * dot
-    x = jnp.bitwise_xor(da[:, None, :], db[None, :, :])
-    return jnp.sum(jax.lax.population_count(x), axis=-1).astype(jnp.int32)
+    """[Qa,8] x [Qb,8] uint32 -> [Qa,Qb] int32 Hamming distances.
+
+    pop(a ^ b) = pop(a) + pop(b) - 2 <bits(a), bits(b)>: the bits are
+    unpacked to 0/1 int8 once and the cross term is one int8 dot_general
+    with int32 accumulation — exact, and on the H100 faster than an
+    XOR+popcount broadcast at matcher shapes (PERF.md)."""
+    ba = _unpack_bits_i8(da)
+    bb = _unpack_bits_i8(db)
+    dot = jax.lax.dot_general(
+        ba, bb, (((1,), (1,)), ((), ())), preferred_element_type=jnp.int32,
+    )
+    pa = jnp.sum(ba.astype(jnp.int32), axis=1)
+    pb = jnp.sum(bb.astype(jnp.int32), axis=1)
+    return pa[:, None] + pb[None, :] - 2 * dot
 
 
 def hamming_vec(da, db):

@@ -1,8 +1,7 @@
 """Bilinear sampling + image gradients (batched, mask-returning).
 
 Thin compatibility layer over ops.sample: sampling is implemented as one-hot
-weight MATMULS (MXU) because scattered gathers serialize on TPU (~1 ms per
-gather op regardless of size). See ops/sample.py for the idiom.
+weight matmuls. See ops/sample.py for the idiom.
 """
 
 from __future__ import annotations

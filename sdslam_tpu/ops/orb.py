@@ -2,7 +2,7 @@
 
 Replaces ORBextractor's IC_Angle and computeOrbDescriptor
 (/root/reference/src/ORBextractor.cc:78-143).  Design differences from the
-reference (intentional, TPU-first):
+reference (intentional):
 
   * The BRIEF point-pair pattern is NOT the OpenCV learned `bit_pattern_31_`
     table (we do not copy reference data).  We generate a deterministic
@@ -12,8 +12,8 @@ reference (intentional, TPU-first):
   * Descriptor sampling uses true rotation of the pattern with
     nearest-pixel gather on the blurred level image — one big batched gather
     instead of per-keypoint pointer walks.
-  * Descriptors are packed as [N, 8] uint32 so Hamming distance is 8
-    XOR+popcounts (jax.lax.population_count / Pallas kernel).
+  * Descriptors are packed as [N, 8] uint32 (256 bits); ops/hamming.py
+    turns them into dense Hamming distances.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ def moment_maps(img):
 
     m10(p) = sum_{|d|<=R, circular} dx * I(p+d); computing the dense maps
     with column/row prefix sums is O(R) shifted adds per pixel instead of a
-    per-keypoint [N,31,31] scattered gather (the TPU anti-pattern). Border
+    per-keypoint [N,31,31] scattered gather. Border
     pixels wrap (jnp.roll) — irrelevant because keypoints keep a 19px border.
     """
     R = HALF_PATCH
@@ -126,9 +126,11 @@ def _binned_diff_matrices(seed: int = 1234) -> np.ndarray:
     return D
 
 
-def extract_patches(img, uv, half: int, precision=None):
+def extract_patches(img, uv, half: int,
+                    precision=jax.lax.Precision.HIGHEST):
     """[N, 2h+1, 2h+1] integer-centered patches via row one-hot matmul +
-    column one-hot contraction (no scattered gather)."""
+    column one-hot contraction (no scattered gather). Full float32 by
+    default: in TF32 the copied intensities would lose their low bits."""
     H, W = img.shape
     N = uv.shape[0]
     w = 2 * half + 1
@@ -138,10 +140,11 @@ def extract_patches(img, uv, half: int, precision=None):
     ry = jnp.clip(y0[:, None] + d[None, :], 0, H - 1)  # [N,w]
     rxc = jnp.clip(x0[:, None] + d[None, :], 0, W - 1)
     oy = (ry[..., None] == jnp.arange(H)[None, None, :]).astype(jnp.float32)
-    rows = jnp.matmul(oy.reshape(N * w, H), img).reshape(N, w, W)
+    rows = jnp.matmul(oy.reshape(N * w, H), img,
+                      precision=precision).reshape(N, w, W)
     ox = (rxc[..., None] == jnp.arange(W)[None, None, :]).astype(jnp.float32)
     # patch[n, r, j] = rows[n, r, x0+dj]
-    patch = jnp.einsum("nrw,njw->nrj", rows, ox)
+    patch = jnp.einsum("nrw,njw->nrj", rows, ox, precision=precision)
     return patch
 
 
@@ -153,10 +156,9 @@ def descriptors(img_blurred, uv, angle, valid):
 
     The angle is quantized to 30 bins (the ORB paper's discretization); each
     bin has a precomputed sparse +-1 difference matrix, so all 256 pair
-    comparisons for a keypoint are ONE [N, 841] x [841, 256] matmul (bf16
-    default precision: the +-1 weights select exactly two pixels, so the
-    product is exact up to input rounding — flipped bits only on near-tie
-    pairs, which are noise-dominated in BRIEF anyway).
+    comparisons for a keypoint are ONE [N, 841] x [841, 256] matmul, at full
+    float32 so that a pair's difference is exact: the +-1 weights select
+    exactly two pixels).
     """
     N = uv.shape[0]
     patch = extract_patches(img_blurred, uv, PATCH_R).reshape(N, -1)
@@ -168,8 +170,9 @@ def descriptors(img_blurred, uv, angle, valid):
         bin_i[:, None] == jnp.arange(N_ANGLE_BINS)[None, :]
     ).astype(jnp.float32)
     # diffs[n,s] = patch[n] @ D[bin(n)]: 30 shared matmuls + bin selection
-    per_bin = jnp.einsum("nq,bqs->nbs", patch, D)  # [N,B,256]
-    diffs = jnp.einsum("nb,nbs->ns", onehot_b, per_bin)
+    hi = jax.lax.Precision.HIGHEST
+    per_bin = jnp.einsum("nq,bqs->nbs", patch, D, precision=hi)  # [N,B,256]
+    diffs = jnp.einsum("nb,nbs->ns", onehot_b, per_bin, precision=hi)
     bits = (diffs > 0).astype(jnp.uint32)  # [N,256]
     words = bits.reshape(N, DESC_WORDS, 32)
     weights = (jnp.uint32(1) << jnp.arange(32, dtype=jnp.uint32))[None, None, :]

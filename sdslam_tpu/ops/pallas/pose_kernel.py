@@ -1,29 +1,20 @@
-"""Pallas TPU kernel: the WHOLE pose-only Gauss-Newton solve in ONE launch.
+"""The whole pose-only Gauss-Newton solve as one Pallas kernel (Triton route).
 
-Replaces the per-iteration XLA while_loops of solvers/pose_opt.optimize_pose
-(the TPU-native Optimizer::PoseOptimization,
-/root/reference/src/Optimizer.cc:221-415) on the per-frame hot path: the r4
-per-op budget showed the pose-GN/EKF while-loops at 1.73 ms of the 3.05 ms
-steady frame while the three fused align levels cost 0.39 ms total
-(BENCH_TABLE.md "Per-op budget") — each while iteration is a chain of many
-small XLA ops whose dispatch gaps dominate at these tiny shapes (~1k edges,
-6x6 systems). This kernel runs rounds x iters GN steps, the chi2
-inlier/outlier reclassification between rounds, the Huber weighting
-(dropped from round 3 on), and the optional alignment-prior term as one
-Mosaic program with a scalar SE3 carry.
+solvers/pose_opt.optimize_pose runs rounds x iters GN steps of a 6x6 system
+over ~1k reprojection edges, twice per frame. On XLA:GPU every step is a
+handful of small kernels plus a solver custom call inside a loop. Here one
+block holds every edge in registers ([N] vectors, N a power of two) and
+runs all rounds and iterations in-kernel: per step, 27 block reductions
+build H and b, a closed-form 6x6 Cholesky solves for the left increment,
+and the SE(3) exponential updates a pose kept as 12 scalars. Between rounds
+the chi2 test reclassifies inliers; Huber weights apply in the first two
+rounds (Optimizer.cc:343-407).
 
-Mosaic recipes follow ops/pallas/align_kernel.py (r3/r4, learned the hard
-way): no rank-changing reshapes in-kernel (operands arrive pre-packed), no
-scalar stores (outputs accumulate into lane-index one-hot rows), masks stay
-f32, scalar math for exp/log/compose/Cholesky (6x6 unrolled).
-
-Edge-data packing (one [N,16] f32 operand):
-  col 0-2  X world point
-  col 3-4  observed (u, v) undistorted
-  col 5    observed u_right (virtual right coord; <0 = mono edge)
-  col 6    inv_sigma2 (per-octave information)
-  col 7    valid (0/1)
-  col 8    stereo (0/1)
+Edge rows (one [8, N] f32 operand): X world (3), observed u, v, u_right
+(< 0: mono edge), per-octave information, valid (0/1). Scalars (one [32]
+f32 operand): T_init rows 0-2 (12), T_prior^-1 rows 0-2 (12), translation
+and rotation prior information. Outputs: [16] f32 (pose rows 0-2, inlier
+count, total inlier chi2) and [N] int32 inlier flags.
 """
 
 from __future__ import annotations
@@ -33,340 +24,227 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
+
+from sdslam_tpu.geometry.camera import CameraModel
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
 HUBER_MONO = 2.4477
 HUBER_STEREO = 2.7955
+N_SCALARS = 32
+N_OUT = 16
 
 
-def _exp_se3_scalars(d0, d1, d2, d3, d4, d5):
-    """SE3 exp of xi = (rho, phi) in pure scalar math (shared recipe with
-    align_kernel._exp_se3_scalars). Returns (9 R entries row-major, 3 t)."""
+def _exp_se3(d):
+    """xi = (rho, phi) -> 12 pose entries (rows 0-2), lie.se3_exp's formulas."""
+    d0, d1, d2, d3, d4, d5 = d
     th2 = d3 * d3 + d4 * d4 + d5 * d5
-    th = jnp.sqrt(th2 + 1e-30)
-    small = th < 1e-5
-    A = jnp.where(small, 1.0 - th2 / 6.0, jnp.sin(th) / th)
-    B = jnp.where(small, 0.5 - th2 / 24.0, (1.0 - jnp.cos(th)) / th2)
-    C = jnp.where(small, 1.0 / 6.0 - th2 / 120.0, (1.0 - A) / th2)
-    p00, p11, p22 = -d4 * d4 - d5 * d5, -d3 * d3 - d5 * d5, -d3 * d3 - d4 * d4
-    p01, p02, p12 = d3 * d4, d3 * d5, d4 * d5
-    r00 = 1.0 + B * p00
-    r11 = 1.0 + B * p11
-    r22 = 1.0 + B * p22
-    r01 = -A * d5 + B * p01
-    r10 = A * d5 + B * p01
-    r02 = A * d4 + B * p02
-    r20 = -A * d4 + B * p02
-    r12 = -A * d3 + B * p12
-    r21 = A * d3 + B * p12
-    v00 = 1.0 + C * p00
-    v11 = 1.0 + C * p11
-    v22 = 1.0 + C * p22
-    v01 = -B * d5 + C * p01
-    v10 = B * d5 + C * p01
-    v02 = B * d4 + C * p02
-    v20 = -B * d4 + C * p02
-    v12 = -B * d3 + C * p12
-    v21 = B * d3 + C * p12
-    t0 = v00 * d0 + v01 * d1 + v02 * d2
-    t1 = v10 * d0 + v11 * d1 + v12 * d2
-    t2 = v20 * d0 + v21 * d1 + v22 * d2
-    return (r00, r01, r02, r10, r11, r12, r20, r21, r22), (t0, t1, t2)
-
-
-def _log_se3_scalars(T):
-    """SE3 log in scalars, matching geometry/lie.se3_log for theta < pi/2
-    (the prior residual is a small deviation on the hot path; the XLA
-    oracle covers the full range). Mosaic has NO inverse trig (acos/asin/
-    atan all unimplemented), so theta/(2 sin theta) and the V^-1
-    coefficient are computed as series in sin^2(theta): with s = sin(theta)
-    = |vee(R - R^T)|/2, theta/s = 1 + s^2/6 + 3 s^4/40 + 15 s^6/336 + ...
-    (the asin series), accurate to <1e-6 for theta <= 0.5 rad."""
-    (r00, r01, r02, r10, r11, r12, r20, r21, r22, t0, t1, t2) = T
-    w0 = r21 - r12
-    w1 = r02 - r20
-    w2 = r10 - r01
-    s2 = 0.25 * (w0 * w0 + w1 * w1 + w2 * w2)  # sin^2(theta)
-    f = 1.0 + s2 * (1.0 / 6.0 + s2 * (3.0 / 40.0 + s2 * (15.0 / 336.0)))
-    scale = 0.5 * f  # theta / (2 sin theta)
-    p0 = scale * w0
-    p1 = scale * w1
-    p2 = scale * w2
-    th2 = s2 * f * f  # theta^2 = (s * theta/s)^2
-    # Vinv = I - 0.5 hat(phi) + cc hat(phi)^2 (lie.so3_left_jacobian_inv);
-    # cc = (1 - (th/2) cot(th/2)) / th^2 = 1/12 + th^2/720 + th^4/30240 + ...
-    cc = 1.0 / 12.0 + th2 * (1.0 / 720.0 + th2 * (1.0 / 30240.0))
-    q00 = -p1 * p1 - p2 * p2
-    q11 = -p0 * p0 - p2 * p2
-    q22 = -p0 * p0 - p1 * p1
-    q01 = p0 * p1
-    q02 = p0 * p2
-    q12 = p1 * p2
-    m00 = 1.0 + cc * q00
-    m11 = 1.0 + cc * q11
-    m22 = 1.0 + cc * q22
-    m01 = 0.5 * p2 + cc * q01
-    m10 = -0.5 * p2 + cc * q01
-    m02 = -0.5 * p1 + cc * q02
-    m20 = 0.5 * p1 + cc * q02
-    m12 = 0.5 * p0 + cc * q12
-    m21 = -0.5 * p0 + cc * q12
-    rho0 = m00 * t0 + m01 * t1 + m02 * t2
-    rho1 = m10 * t0 + m11 * t1 + m12 * t2
-    rho2 = m20 * t0 + m21 * t1 + m22 * t2
-    return (rho0, rho1, rho2, p0, p1, p2)
+    th = jnp.sqrt(jnp.maximum(th2, 0.0))
+    small = th2 < 1e-8
+    a = jnp.where(small, 1.0 - th2 / 6.0, jnp.sin(th) / jnp.maximum(th, 1e-8))
+    b = jnp.where(small, 0.5 - th2 / 24.0,
+                  (1.0 - jnp.cos(th)) / jnp.maximum(th2, 1e-8))
+    c = jnp.where(small, 1.0 / 6.0 - th2 / 120.0,
+                  (th - jnp.sin(th)) / jnp.maximum(th2 * th, 1e-8))
+    # K = hat(phi), K2 = K @ K
+    k2 = ((-d4 * d4 - d5 * d5, d3 * d4, d3 * d5),
+          (d3 * d4, -d3 * d3 - d5 * d5, d4 * d5),
+          (d3 * d5, d4 * d5, -d3 * d3 - d4 * d4))
+    k = ((0.0, -d5, d4), (d5, 0.0, -d3), (-d4, d3, 0.0))
+    eye = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0))
+    R = [[eye[i][j] + a * k[i][j] + b * k2[i][j] for j in range(3)]
+         for i in range(3)]
+    V = [[eye[i][j] + b * k[i][j] + c * k2[i][j] for j in range(3)]
+         for i in range(3)]
+    t = [V[i][0] * d0 + V[i][1] * d1 + V[i][2] * d2 for i in range(3)]
+    return [R[0][0], R[0][1], R[0][2], t[0], R[1][0], R[1][1], R[1][2], t[1],
+            R[2][0], R[2][1], R[2][2], t[2]]
 
 
 def _compose(A, B):
-    """C = A @ B for 12-scalar SE3 tuples (R row-major + t)."""
-    (a00, a01, a02, a10, a11, a12, a20, a21, a22, at0, at1, at2) = A
-    (b00, b01, b02, b10, b11, b12, b20, b21, b22, bt0, bt1, bt2) = B
-    return (
-        a00 * b00 + a01 * b10 + a02 * b20,
-        a00 * b01 + a01 * b11 + a02 * b21,
-        a00 * b02 + a01 * b12 + a02 * b22,
-        a10 * b00 + a11 * b10 + a12 * b20,
-        a10 * b01 + a11 * b11 + a12 * b21,
-        a10 * b02 + a11 * b12 + a12 * b22,
-        a20 * b00 + a21 * b10 + a22 * b20,
-        a20 * b01 + a21 * b11 + a22 * b21,
-        a20 * b02 + a21 * b12 + a22 * b22,
-        a00 * bt0 + a01 * bt1 + a02 * bt2 + at0,
-        a10 * bt0 + a11 * bt1 + a12 * bt2 + at1,
-        a20 * bt0 + a21 * bt1 + a22 * bt2 + at2,
-    )
+    """Rows 0-2 of A @ B for 12-entry poses."""
+    out = []
+    for i in range(3):
+        for j in range(4):
+            v = (A[4 * i] * B[j] + A[4 * i + 1] * B[4 + j]
+                 + A[4 * i + 2] * B[8 + j])
+            out.append(v + A[4 * i + 3] if j == 3 else v)
+    return out
 
 
-def _chol_solve6(H, b):
-    """x = H^-1 b for a 6x6 SPD system held as scalars. Unrolled Cholesky
-    (all-scalar; Mosaic-legal). H: list-of-lists [6][6], b: list [6]."""
-    L = [[None] * 6 for _ in range(6)]
-    Ld_inv = [None] * 6
+def _log_se3(T):
+    """12 pose entries -> xi (rho, phi), lie.se3_log's generic and
+    small-angle branches (the prior residual is a small rotation)."""
+    tr = T[0] + T[5] + T[10]
+    cos_t = jnp.clip((tr - 1.0) * 0.5, -1.0, 1.0)
+    th = jnp.arccos(cos_t)
+    w = (T[9] - T[6], T[2] - T[8], T[4] - T[1])
+    scale = jnp.where(th < 1e-4, 0.5 + th * th / 12.0,
+                      th / jnp.maximum(2.0 * jnp.sin(th), 1e-8))
+    p = [scale * wi for wi in w]
+    th2 = p[0] * p[0] + p[1] * p[1] + p[2] * p[2]
+    th = jnp.sqrt(jnp.maximum(th2, 0.0))
+    half = 0.5 * th
+    cot = half * jnp.cos(half) / jnp.maximum(jnp.sin(half), 1e-8)
+    c = jnp.where(th2 < 1e-8, 1.0 / 12.0 + th2 / 720.0,
+                  (1.0 - cot) / jnp.maximum(th2, 1e-8))
+    k = ((0.0, -p[2], p[1]), (p[2], 0.0, -p[0]), (-p[1], p[0], 0.0))
+    k2 = ((-p[1] * p[1] - p[2] * p[2], p[0] * p[1], p[0] * p[2]),
+          (p[0] * p[1], -p[0] * p[0] - p[2] * p[2], p[1] * p[2]),
+          (p[0] * p[2], p[1] * p[2], -p[0] * p[0] - p[1] * p[1]))
+    t = (T[3], T[7], T[11])
+    rho = []
+    for i in range(3):
+        row = [(1.0 if i == j else 0.0) - 0.5 * k[i][j] + c * k2[i][j]
+               for j in range(3)]
+        rho.append(row[0] * t[0] + row[1] * t[1] + row[2] * t[2])
+    return rho + p
+
+
+def _solve6(H, b):
+    """Closed-form Cholesky solve of the symmetric 6x6 system H x = b
+    (H as a dict {(i, j): scalar}, i >= j)."""
+    L = {}
+    for j in range(6):
+        s = H[(j, j)] - sum(L[(j, k)] * L[(j, k)] for k in range(j))
+        L[(j, j)] = jnp.sqrt(jnp.maximum(s, 1e-30))
+        for i in range(j + 1, 6):
+            s = H[(i, j)] - sum(L[(i, k)] * L[(j, k)] for k in range(j))
+            L[(i, j)] = s / L[(j, j)]
+    y = []
     for i in range(6):
-        for j in range(i):
-            s = H[i][j]
-            for k in range(j):
-                s = s - L[i][k] * L[j][k]
-            L[i][j] = s * Ld_inv[j]
-        s = H[i][i]
-        for k in range(i):
-            s = s - L[i][k] * L[i][k]
-        L[i][i] = jnp.sqrt(jnp.maximum(s, 1e-20))
-        Ld_inv[i] = 1.0 / L[i][i]
-    y = [None] * 6
-    for i in range(6):
-        s = b[i]
-        for k in range(i):
-            s = s - L[i][k] * y[k]
-        y[i] = s * Ld_inv[i]
+        y.append((b[i] - sum(L[(i, k)] * y[k] for k in range(i))) / L[(i, i)])
     x = [None] * 6
-    for i in range(5, -1, -1):
-        s = y[i]
-        for k in range(i + 1, 6):
-            s = s - L[k][i] * x[k]
-        x[i] = s * Ld_inv[i]
+    for i in reversed(range(6)):
+        s = y[i] - sum(L[(k, i)] * x[k] for k in range(i + 1, 6))
+        x[i] = s / L[(i, i)]
     return x
 
 
-def _kernel(edata_ref, T0_ref, prior_ref, outT_ref, outM_ref, *,
-            fx, fy, cx, cy, bf, rounds, iters, has_prior):
-    # edge data arrives TRANSPOSED [16, N]; every per-edge quantity stays a
-    # [1, N] 2D row throughout — full reductions of 1D column slices hit
-    # Mosaic's "Not implemented: Offset change" (each column lives at a
-    # different lane offset), while [1, N] row slices + 2D reduces lower
-    # cleanly (same recipe as align_kernel's J_ref[f] rows)
-    X0 = edata_ref[0:1, :]
-    X1 = edata_ref[1:2, :]
-    X2 = edata_ref[2:3, :]
-    uo = edata_ref[3:4, :]
-    vo = edata_ref[4:5, :]
-    uro = edata_ref[5:6, :]
-    isig = edata_ref[6:7, :]
-    val = edata_ref[7:8, :]
-    ste = edata_ref[8:9, :]
-    th_edge = jnp.where(ste > 0, CHI2_STEREO, CHI2_MONO)
-    delta_h = jnp.where(ste > 0, HUBER_STEREO, HUBER_MONO)
+def _edges_at(cam, T, e):
+    """Residuals, Jacobian rows and masks of every edge at pose T."""
+    X0, X1, X2, uo, vo, uro, isig, valid = e
+    x = T[0] * X0 + T[1] * X1 + T[2] * X2 + T[3]
+    y = T[4] * X0 + T[5] * X1 + T[6] * X2 + T[7]
+    z = T[8] * X0 + T[9] * X1 + T[10] * X2 + T[11]
+    zi = 1.0 / jnp.maximum(z, 1e-6)
+    zi2 = zi * zi
+    u = cam.fx * x * zi + cam.cx
+    v = cam.fy * y * zi + cam.cy
+    stereo = uro >= 0.0
+    st = jnp.where(stereo, 1.0, 0.0)
+    r = (u - uo, v - vo, jnp.where(stereo, u - cam.bf * zi - uro, 0.0))
+    zero = jnp.zeros_like(x)
+    jx = ((cam.fx * zi, zero, -cam.fx * x * zi2),
+          (zero, cam.fy * zi, -cam.fy * y * zi2),
+          (st * cam.fx * zi, zero, st * (-cam.fx * x * zi2 + cam.bf * zi2)))
+    # d(Xc)/d(left increment) = [I | -hat(Xc)]
+    J = [(a0, a1, a2, a2 * y - a1 * z, a0 * z - a2 * x, a1 * x - a0 * y)
+         for a0, a1, a2 in jx]
+    behind = z <= 0.05
+    return r, J, behind, stereo
 
-    T0 = tuple(T0_ref[0, k] for k in range(12))
-    Tp = tuple(prior_ref[0, k] for k in range(12))  # T_prior^-1
-    rot_info = prior_ref[0, 12]
-    trans_info = prior_ref[0, 13]
 
-    def edge_geom(T):
-        (r00, r01, r02, r10, r11, r12, r20, r21, r22, t0, t1, t2) = T
-        xc = r00 * X0 + r01 * X1 + r02 * X2 + t0
-        yc = r10 * X0 + r11 * X1 + r12 * X2 + t1
-        zc = r20 * X0 + r21 * X1 + r22 * X2 + t2
-        front = (zc > 0.05).astype(jnp.float32)
-        zi = 1.0 / jnp.maximum(zc, 1e-6)
-        u = fx * xc * zi + cx
-        v = fy * yc * zi + cy
-        r0 = u - uo
-        r1 = v - vo
-        r2 = ste * (u - bf * zi - uro)
-        return xc, yc, zc, zi, front, r0, r1, r2
+def _pose_kernel(e_ref, s_ref, o_ref, inl_ref, *, cam, rounds, iters,
+                 has_prior):
+    e = [e_ref[k, :] for k in range(8)]
+    isig, valid = e[6], e[7] > 0.5
+    T0 = [s_ref[k] for k in range(12)]
+    Tp_inv = [s_ref[12 + k] for k in range(12)]
+    w_prior = [s_ref[24]] * 3 + [s_ref[25]] * 3
 
-    def chi2_of(T):
-        _, _, _, _, front, r0, r1, r2 = edge_geom(T)
-        return (r0 * r0 + r1 * r1 + r2 * r2) * isig, front
-
-    def gn_iter(T, mask, use_huber):
-        xc, yc, zc, zi, front, r0, r1, r2 = edge_geom(T)
-        m = mask * front
-        w = isig * m
+    def gn_step(T, inl, use_huber):
+        r, J, behind, stereo = _edges_at(cam, T, e)
+        m = inl & valid & (~behind)
+        w = jnp.where(m, isig, 0.0)
         if use_huber:
-            rn = jnp.sqrt((r0 * r0 + r1 * r1 + r2 * r2) * isig + 1e-12)
-            w = w * jnp.minimum(1.0, delta_h / jnp.maximum(rn, 1e-9))
-        zi2 = zi * zi
-        a = fx * zi
-        cJ = -fx * xc * zi2
-        bJ = fy * zi
-        dJ = -fy * yc * zi2
-        eJ = cJ + bf * zi2
-        # J rows (6 components each); Jr carries the stereo mask so its
-        # products vanish on mono edges (ste^2 = ste)
-        zero = jnp.zeros_like(a)
-        Ju = (a, zero, cJ, cJ * yc, a * zc - cJ * xc, -a * yc)
-        Jv = (zero, bJ, dJ, -bJ * zc + dJ * yc, -dJ * xc, bJ * xc)
-        Jr = tuple(
-            ste * g for g in (a, zero, eJ, eJ * yc, a * zc - eJ * xc, -a * yc)
-        )
-        wu = tuple(w * g for g in Ju)
-        wv = tuple(w * g for g in Jv)
-        wr = tuple(w * g for g in Jr)
-        H = [[None] * 6 for _ in range(6)]
+            rn = jnp.sqrt((r[0] * r[0] + r[1] * r[1] + r[2] * r[2]) * isig
+                          + 1e-12)
+            dh = jnp.where(stereo, HUBER_STEREO, HUBER_MONO)
+            w = w * jnp.minimum(1.0, dh / jnp.maximum(rn, 1e-9))
+        H = {}
         for i in range(6):
             for j in range(i + 1):
-                H[i][j] = jnp.sum(
-                    wu[i] * Ju[j] + wv[i] * Jv[j] + wr[i] * Jr[j]
-                )
-                H[j][i] = H[i][j]
-        bvec = [
-            -jnp.sum(wu[i] * r0 + wv[i] * r1 + wr[i] * r2) for i in range(6)
-        ]
+                H[(i, j)] = jnp.sum(
+                    w * (J[0][i] * J[0][j] + J[1][i] * J[1][j]
+                         + J[2][i] * J[2][j]))
+        b = [-jnp.sum(w * (J[0][i] * r[0] + J[1][i] * r[1] + J[2][i] * r[2]))
+             for i in range(6)]
         if has_prior:
-            xi = _log_se3_scalars(_compose(T, Tp))
-            for i in range(3):
-                H[i][i] = H[i][i] + trans_info
-                bvec[i] = bvec[i] - trans_info * xi[i]
-            for i in range(3, 6):
-                H[i][i] = H[i][i] + rot_info
-                bvec[i] = bvec[i] - rot_info * xi[i]
-        damp = 1e-6 * jnp.maximum(
-            (H[0][0] + H[1][1] + H[2][2] + H[3][3] + H[4][4] + H[5][5]) / 6.0,
-            1e-8,
-        )
+            xi = _log_se3(_compose(T, Tp_inv))
+            for i in range(6):
+                H[(i, i)] = H[(i, i)] + w_prior[i]
+                b[i] = b[i] - w_prior[i] * xi[i]
+        tr = sum(H[(i, i)] for i in range(6))
+        damp = 1e-6 * jnp.maximum(tr / 6.0, 1e-8)
         for i in range(6):
-            H[i][i] = H[i][i] + damp
-        d = _chol_solve6(H, bvec)
-        E = _exp_se3_scalars(d[0], d[1], d[2], d[3], d[4], d[5])
-        return _compose(E[0] + E[1], T)  # T <- Exp(delta) @ T (left, g2o)
+            H[(i, i)] = H[(i, i)] + damp
+        return _compose(_exp_se3(_solve6(H, b)), T)
 
-    T = T0
-    mask = val
+    def classify(T):
+        r, _, behind, stereo = _edges_at(cam, T, e)
+        chi2 = (r[0] * r[0] + r[1] * r[1] + r[2] * r[2]) * isig
+        th = jnp.where(stereo, CHI2_STEREO, CHI2_MONO)
+        return valid & (~behind) & (chi2 <= th), chi2
+
+    T, inl = T0, valid
     for rnd in range(rounds):
-        use_huber = rnd < 2
+        T = list(jax.lax.fori_loop(
+            0, iters,
+            lambda _, T, inl=inl, rnd=rnd: tuple(gn_step(list(T), inl, rnd < 2)),
+            tuple(T),
+        ))
+        inl, _ = classify(T)
+    _, chi2 = classify(T)
+    total = jnp.sum(jnp.where(inl, chi2, 0.0))
+    n_inl = jnp.sum(jnp.where(inl, 1.0, 0.0))
+    idx = jax.lax.broadcasted_iota(jnp.int32, (N_OUT,), 0)
+    out = jnp.zeros((N_OUT,), jnp.float32)
+    for k, val in enumerate(T + [n_inl, total]):
+        out = jnp.where(idx == k, val, out)
+    o_ref[...] = out
+    inl_ref[...] = jnp.where(inl, 1, 0).astype(jnp.int32)
 
-        def body(_, T12):
-            return gn_iter(T12, mask, use_huber)
 
-        T = jax.lax.fori_loop(0, iters, body, T)
-        chi2, front = chi2_of(T)
-        mask = val * front * (chi2 <= th_edge).astype(jnp.float32)
-
-    chi2, front = chi2_of(T)
-    inlier = mask  # == val * front * (chi2 <= th) at the final T
-    total = jnp.sum(inlier * chi2)
-    n_inl = jnp.sum(inlier)
-    iota16 = jax.lax.broadcasted_iota(jnp.int32, (1, 16), 1)
-    acc = jnp.zeros((1, 16), jnp.float32)
-    for k in range(12):
-        acc = acc + jnp.where(iota16 == k, T[k], 0.0)
-    acc = acc + jnp.where(iota16 == 12, total, 0.0)
-    acc = acc + jnp.where(iota16 == 13, n_inl, 0.0)
-    outT_ref[:, :] = acc
-    outM_ref[0:1, :] = inlier
+def pack(X, uv_obs, ur_obs, inv_sigma2, valid, Tcw_init, T_prior_inv,
+         prior_trans_info, prior_rot_info):
+    """(edges [8, Np], scalars [32]) with Np the next power of two >= N;
+    padding edges are invalid."""
+    N = X.shape[0]
+    n_pad = max(16, 1 << (N - 1).bit_length())
+    f32 = jnp.float32
+    rows = jnp.concatenate([
+        X.T.astype(f32), uv_obs.T.astype(f32), ur_obs[None].astype(f32),
+        inv_sigma2[None].astype(f32), valid[None].astype(f32),
+    ])
+    edges = jnp.pad(rows, ((0, 0), (0, n_pad - N)))
+    scal = jnp.concatenate([
+        Tcw_init[:3].reshape(12).astype(f32),
+        T_prior_inv[:3].reshape(12).astype(f32),
+        jnp.stack([jnp.asarray(prior_trans_info, f32),
+                   jnp.asarray(prior_rot_info, f32)]),
+        jnp.zeros((N_SCALARS - 26,), f32),
+    ])
+    return edges, scal
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=(
-        "fx", "fy", "cx", "cy", "bf", "rounds", "iters", "has_prior",
-        "interpret",
-    ),
+    static_argnames=("cam", "rounds", "iters", "has_prior", "interpret"),
 )
-def pose_optimize(
-    edata,  # [N,16] packed edge data (see module docstring)
-    T_init,  # [4,4]
-    T_prior_inv,  # [4,4] (identity when has_prior=False)
-    rot_info,  # scalar (traced)
-    trans_info,  # scalar (traced)
-    fx: float, fy: float, cx: float, cy: float, bf: float,
-    rounds: int = 4,
-    iters: int = 10,
-    has_prior: bool = True,
-    interpret: bool = False,
-):
-    """One launch for the full pose solve. Returns
-    (T [4,4], inliers [N] bool, n_inliers i32, chi2 f32)."""
-    N = edata.shape[0]
-    T0 = jnp.concatenate(
-        [T_init[:3, :3].reshape(9), T_init[:3, 3].reshape(3),
-         jnp.zeros((4,), jnp.float32)]
-    ).reshape(1, 16)
-    pr = jnp.concatenate(
-        [T_prior_inv[:3, :3].reshape(9), T_prior_inv[:3, 3].reshape(3),
-         jnp.stack([jnp.asarray(rot_info, jnp.float32),
-                    jnp.asarray(trans_info, jnp.float32)]),
-         jnp.zeros((2,), jnp.float32)]
-    ).reshape(1, 16)
-    kern = functools.partial(
-        _kernel, fx=fx, fy=fy, cx=cx, cy=cy, bf=bf,
-        rounds=rounds, iters=iters, has_prior=has_prior,
-    )
-    outT, outM = pl.pallas_call(
-        kern,
-        out_shape=(
-            jax.ShapeDtypeStruct((1, 16), jnp.float32),
-            jax.ShapeDtypeStruct((1, N), jnp.float32),
-        ),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ),
+def pose_solve(cam: CameraModel, edges, scal, rounds: int, iters: int,
+               has_prior: bool, interpret: bool = False):
+    """Run the kernel on packed inputs; returns ([16] f32, [Np] int32)."""
+    n_pad = edges.shape[1]
+    kernel = functools.partial(_pose_kernel, cam=cam, rounds=rounds,
+                               iters=iters, has_prior=has_prior)
+    return pl.pallas_call(
+        kernel,
+        out_shape=(jax.ShapeDtypeStruct((N_OUT,), jnp.float32),
+                   jax.ShapeDtypeStruct((n_pad,), jnp.int32)),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
-        # kernel-ready transposed layout is produced on the XLA side
-        # (rank/axis changes are not lowerable in-kernel)
-    )(jnp.transpose(jnp.asarray(edata, jnp.float32)), T0, pr)
-    T = jnp.eye(4, dtype=jnp.float32)
-    T = T.at[:3, :3].set(outT[0, 0:9].reshape(3, 3))
-    T = T.at[:3, 3].set(outT[0, 9:12])
-    return (
-        T,
-        outM[0] > 0.5,
-        outT[0, 13].astype(jnp.int32),
-        outT[0, 12],
-    )
-
-
-def pack_edges(X, uv_obs, ur_obs, inv_sigma2, valid, stereo):
-    """XLA-side packing of the [N,16] kernel operand."""
-    N = X.shape[0]
-    cols = [
-        X[:, 0], X[:, 1], X[:, 2],
-        uv_obs[:, 0], uv_obs[:, 1], ur_obs,
-        inv_sigma2,
-        valid.astype(jnp.float32),
-        stereo.astype(jnp.float32),
-    ]
-    e = jnp.stack(cols, axis=1)
-    return jnp.concatenate(
-        [e, jnp.zeros((N, 16 - e.shape[1]), jnp.float32)], axis=1
-    )
+        name="pose_solve",
+    )(edges, scal)

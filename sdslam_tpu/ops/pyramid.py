@@ -27,9 +27,8 @@ def gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:
 def _sep_conv2d(img, k1d):
     """Separable 2D convolution with edge replication, img [H,W] f32.
 
-    Implemented as sliced multiply-adds (VPU, fully fused) — a 1-channel
-    lax.conv lowers to an inefficient TPU convolution (~1 ms for 7x7 on
-    640x480 vs ~0.05 ms for the shifted-adds form)."""
+    Implemented as sliced multiply-adds (fully fused elementwise work)
+    instead of a 1-channel lax.conv."""
     r = (len(k1d) - 1) // 2
     H, W = img.shape
     xp = jnp.pad(img, ((0, 0), (r, r)), mode="edge")
@@ -46,13 +45,7 @@ def gaussian_blur(img, sigma: float = 2.0, radius: int = 3):
 def downsample2(img):
     """Anti-aliased exact 2x downsample: 5-tap blur then stride 2.
 
-    r5: decimation is a PLAIN strided lax.slice. The r1 reading that a
-    stride-2 minor-axis slice lowers to a ~0.8 ms gather no longer holds —
-    A/B slope-timed on TPU, the whole 4-level decimation chain is 29.5 us
-    as strided slices vs 276 us for the r1 reshape+unit-slice workaround
-    (whose [H/2,2,W/2,2] intermediates forced a ~55 us relayout copy per
-    level in the full extractor); a one-hot MXU matmul decimation ties the
-    strided slice (28 us). All three select exactly the same pixels."""
+    Decimation is a plain strided lax.slice."""
     blurred = _sep_conv2d(img, gaussian_kernel1d(1.0, 2))
     H, W = blurred.shape
     Hp, Wp = H + (H & 1), W + (W & 1)

@@ -1,17 +1,16 @@
-"""Point sampling from images as one-hot MATMULS (the TPU gather idiom).
+"""Point sampling from images as one-hot MATMULS instead of gathers.
 
-XLA lowers a scattered gather (`img[yi, xi]`) on TPU to a serialized
-per-element DMA loop: ~1 ms for even a 1024-point gather, independent of
-size — it dominated the front-end (orientation patches, descriptor taps,
-depth reads, photometric alignment). The MXU-native equivalent: expand the
-row index to a one-hot (or two-hot bilinear-weight) matrix and contract,
+The formulation expands the row index to a one-hot (or two-hot
+bilinear-weight) matrix and contracts,
 
     rows = W_y [B,H] @ img [H,W]          (one matmul)
     out  = sum(rows * W_x [B,W], axis=-1) (one fused reduce)
 
 which is exact for nearest sampling (0/1 weights) and exact-in-f32 for
-bilinear. Cost is B*H*W MACs — e.g. 1024 points on 640x480 = 0.3 GMAC,
-microseconds on the MXU vs ~1 ms for the gather.
+bilinear at precision=HIGHEST. Cost is B*H*W MACs — e.g. 1024 points on
+640x480 = 0.3 GMAC. It was chosen for hardware where a scattered gather is
+slow; whether a plain gather is faster on the GPU is an open measurement
+(PERF.md).
 
 Replaces the gather-based interp used by ImageAlign's PrecomputePatches /
 ComputeResiduals equivalents (/root/reference/src/ImageAlign.cc:281-421)
@@ -85,7 +84,7 @@ def sample_bilinear_patch(img, uv_center, patch_half=2, precision=_HI):
     each center: exploits floor(u + d) = floor(u) + d for integer d, so all
     patch taps share one fractional weight and the row matmul shrinks from
     [16N, H] @ [H, W] to 2*patch_half shifted two-hot [N, H] @ [H, W]
-    matmuls (4x less MXU work for the aligner's 4x4 patches).
+    matmuls (4x less matmul work for the aligner's 4x4 patches).
 
     Returns (values [N, P*P], valid [N, P*P]) in dy-outer/dx-inner order,
     exactly matching sample_bilinear on uv_center + integer offsets.

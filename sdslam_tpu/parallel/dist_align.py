@@ -3,13 +3,14 @@ sharded over a device mesh.
 
 The reference's recovery/loop paths are O(N_KF) sequential scans on one CPU
 thread (Tracking::Relocalization, Tracking.cc:1064-1097; LoopClosing::
-DetectLoop, LoopClosing.cc:100-222). The single-device TPU build already
+DetectLoop, LoopClosing.cc:100-222). The single-device build already
 turns them into one vmapped batch (pipeline/relocalization.py,
 pipeline/loop_closing.py); this module is the multi-chip form the SURVEY's
 "long-context" analog calls for (SURVEY.md §5): KEYFRAMES ARE THE SEQUENCE
 — the keyframe pool (poses, stored pyramids, keypoints) is sharded over
 mesh axis 'dp', every device aligns the query frame against its keyframe
-shard, and one argmin-combine over ICI picks the winner.
+shard, and one argmin-combine across devices (NCCL over NVLink) picks
+the winner.
 
 Communication: the query pyramid is replicated (~300 KB); the combine is a
 psum-style min over [K] error vectors — a few KB. Scaling over the pool is

@@ -1,10 +1,11 @@
 """Distributed bundle adjustment over a device mesh.
 
-The TPU-native replacement for the reference's absent distributed layer
+The replacement for the reference's absent distributed layer
 (SURVEY.md §2.9): landmarks + observation blocks are sharded across devices
 (axis "dp"); each device computes the Schur contributions of its point
 shard; the reduced camera system S [6K,6K] and gradient are combined with
-one psum over ICI; the dense Cholesky solve is replicated (it is tiny
+one psum (an NCCL all-reduce over NVLink between the cards of a host);
+the dense Cholesky solve is replicated (it is tiny
 relative to the edge work); landmark back-substitution stays fully local to
 each shard.  This is the BASELINE.json north-star recipe: "distributed BA
 via Schur-reduced camera systems with psum of the reduced normal equations".
@@ -38,13 +39,11 @@ def make_distributed_gn_step(mesh: Mesh, cam: CameraModel, K: int,
       step(kf_Tcw, pt_pos, obs_kf, obs_kp, obs_ok, kf_uv_und, kf_uright,
            kf_octave, cam_active, pt_active) -> (kf_Tcw', pt_pos')
 
-    r4: the per-shard edge pass IS ba._schur_terms — the same flat-[E]
-    edge-level assembly (and, on real TPU shards, the same Pallas edge
-    kernel) as single-device BA; its contract is exactly the distributed
-    split: (S0, bs, cost) are plain sums over edges (psum'd here), while
-    (Hpp_inv, W, bp) are point-local and never leave the shard. The
-    previous [P,M,...]-shaped einsum formulation wasted ~7x on TPU lane
-    padding (solvers/ba.py layout note)."""
+    The per-shard edge pass IS ba._schur_terms — the same flat-[E]
+    edge-level assembly as single-device BA; its contract is exactly the
+    distributed split: (S0, bs, cost) are plain sums over edges (psum'd
+    here), while (Hpp_inv, W_pm, ybp = Hpp^-1 bp) and the edge one-hot
+    Uflat are point-local and never leave the shard."""
 
     def step_local(kf_Tcw, pt_pos, obs_kf, obs_kp, obs_ok, kf_uv_und,
                    kf_uright, kf_octave, cam_active, pt_active):
@@ -55,7 +54,7 @@ def make_distributed_gn_step(mesh: Mesh, cam: CameraModel, K: int,
             cam, kf_Tcw, pt_pos, es, obs_ok, cam_active, pt_active,
             use_huber, lm_lambda,
         )
-        # combine the reduced camera system over ICI; the damping prior
+        # combine the reduced camera system across devices; the damping prior
         # scales with the GLOBAL diagonal trace, so it applies post-psum
         S0 = jax.lax.psum(S0, "dp")
         bs = jax.lax.psum(bs, "dp")
@@ -63,7 +62,7 @@ def make_distributed_gn_step(mesh: Mesh, cam: CameraModel, K: int,
         # local landmark back-substitution on this shard
         dp = ba_mod._back_substitute(dc, Uflat, W_pm, Hpp_inv, ybp, pt_active)
         kf_Tcw_new = jnp.where(
-            cam_active[:, None, None], lie.se3_exp(dc) @ kf_Tcw, kf_Tcw
+            cam_active[:, None, None], lie.mm(lie.se3_exp(dc), kf_Tcw), kf_Tcw
         )
         return kf_Tcw_new, pt_pos + dp
 

@@ -2,10 +2,11 @@
 
 The essential graph after a loop closure is the reference's single biggest
 global pass besides GBA (Optimizer::OptimizeEssentialGraph,
-Optimizer.cc:717-956). TPU-native distribution: EDGES are sharded across
+Optimizer.cc:717-956). Distribution: EDGES are sharded across
 the mesh axis "dp" (each device holds E/n edges of the loop-closure graph);
 every device assembles the normal-equation contribution of its edge shard
-(solvers/pose_graph.edge_system) and ONE psum over ICI combines the dense
+(solvers/pose_graph.edge_system) and ONE psum (NCCL all-reduce over
+NVLink) combines the dense
 [7K, 7K] system; the Cholesky solve + pose update are replicated (tiny
 next to edge work).
 

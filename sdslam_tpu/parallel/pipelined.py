@@ -3,7 +3,7 @@
 The reference decouples per-frame Tracking (caller's thread) from
 LocalMapping (its own thread, /root/reference/src/System.cc:61-62) so the
 camera loop never blocks on bundle adjustment; they share the map under
-`Map::mMutexMapUpdate`. The TPU-native equivalent re-expresses that thread
+`Map::mMutexMapUpdate`. The equivalent here re-expresses that thread
 decoupling as DEVICE decoupling (SURVEY.md §2.9):
 
   * device T runs the per-frame fused tracking program (extract + align +
@@ -20,7 +20,7 @@ pre-keyframe map (the reference's tracking likewise proceeds on whatever
 the map contained when it grabbed the mutex).
 
 Single-host multi-device only (jax.device_put between local devices); the
-cross-host version rides the same MapState pytree over DCN via
+cross-host version rides the same MapState pytree over the network via
 jax.device_put with a cross-process sharding.
 """
 

@@ -16,7 +16,7 @@ Replaces the LoopClosing thread (/root/reference/src/LoopClosing.{h,cc}):
             the essential graph, and optionally run global BA
             (CorrectLoop, LoopClosing.cc:370-533).
 
-TPU shape: detection is one vmapped alignment over the keyframe pool (same
+Shape: detection is one vmapped alignment over the keyframe pool (same
 batched kernel as relocalization); verification is dense matching + one
 vmapped RANSAC; correction is pure array math + the dense Sim3 pose graph.
 """
@@ -217,7 +217,7 @@ def verify_loop_sim3(
         in_hood = in_hood.at[
             jnp.where(contrib >= 0, contrib, ms.P).ravel()
         ].set(True, mode="drop")
-        T_corr = lie.sim3_to_se3(S @ lie.se3_to_sim3(ms.kf_Tcw[cand_kf]))
+        T_corr = lie.sim3_to_se3(lie.mm(S, lie.se3_to_sim3(ms.kf_Tcw[cand_kf])))
         hood = matching.search_by_projection(
             cam, T_corr, ms.pt_pos, ms.pt_desc, in_hood & ms.pt_valid,
             jnp.zeros((ms.P,), jnp.int32),
@@ -255,15 +255,15 @@ def correct_loop_poses(
     keyframes."""
     K = ms.K
     # corrected current pose via the loop measurement
-    T_cur_corr = S_cur_cand @ ms.kf_Tcw[cand_kf]
+    T_cur_corr = lie.mm(S_cur_cand, ms.kf_Tcw[cand_kf])
     # world-side correction for the current group: S_w = Tcw_corr^-1 * Tcw_old
-    S_w = lie.sim3_inv(T_cur_corr) @ ms.kf_Tcw[cur_kf]  # maps old world -> new world
+    S_w = lie.mm(lie.sim3_inv(T_cur_corr), ms.kf_Tcw[cur_kf])  # maps old world -> new world
 
     group = (covis[cur_kf] >= 15) | (jnp.arange(K) == cur_kf)
     group &= ms.kf_valid
     # corrected group poses: Tkw' = Tkw_old * S_w^-1
     kf_Tcw_corr = jnp.where(
-        group[:, None, None], ms.kf_Tcw @ lie.sim3_inv(S_w), ms.kf_Tcw
+        group[:, None, None], lie.mm(ms.kf_Tcw, lie.sim3_inv(S_w)), ms.kf_Tcw
     )
 
     # move the group's points into the corrected world
@@ -425,7 +425,7 @@ def detect_and_consistency(
 
     The host drains only the packed vector, a few frames late — loop
     detection adds ZERO host synchronization to the frame loop (the
-    reference decouples with a thread; the TPU build decouples with the
+    reference decouples with a thread; this build decouples with the
     async result queue, per the architecture invariant that anything
     needing an immediate reaction lives on-device).
 
@@ -528,8 +528,8 @@ class LoopCloser:
     # :532): detection is IGNORED for the 10 keyframes after an accepted
     # correction — without it the revisit segment keeps re-detecting the
     # just-closed loop and every re-correction pays the full host-sequenced
-    # CorrectLoop chain (measured r5: 6 corrections in a 210-frame circuit
-    # cost ~40% of end-to-end fps; with the reference's gate: 1)
+    # CorrectLoop chain (a 210-frame circuit corrected 6 times without the
+    # reference's gate, once with it)
     LOOP_COOLDOWN_KFS: int = 10
     _kf_count: int = 0
     _last_loop_kf: int = -(10 ** 9)

@@ -5,7 +5,7 @@ keyframes newest->oldest, run fast direct image alignment (100 points,
 early-exit error > 0.01, ImageAlign.cc:106-164), then projection matching
 (>= 20 matches) and pose optimization (>= 10 inliers).
 
-TPU-native shape: the O(N_KF) sequential scan becomes ONE batched alignment —
+Shape: the O(N_KF) sequential scan becomes ONE batched alignment —
 vmap the coarse-level aligner over every valid keyframe simultaneously, rank
 candidates by photometric error, then verify the best few with matching +
 pose GN. No vocabulary (the reference dropped DBoW2; so do we).
@@ -115,7 +115,7 @@ def relocalize(
     inv_sigma2 = 1.0 / scale_factor ** (2.0 * octave.astype(jnp.float32))
 
     def verify_one(slot):
-        T_init = T_rels[slot] @ ms.kf_Tcw[slot]
+        T_init = lie.mm(T_rels[slot], ms.kf_Tcw[slot])
         q_pt = ms.kf_mp[slot]
         q_ok = (q_pt >= 0) & ms.pt_valid[jnp.clip(q_pt, 0, ms.P - 1)]
         res = matching.search_by_projection(

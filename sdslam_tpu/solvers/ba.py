@@ -3,7 +3,7 @@
 Replaces the reference's g2o BlockSolver_6_3 + LM pipeline (Optimizer.cc:
 LocalBundleAdjustment :417-714, BundleAdjustment/GlobalBundleAdjustemnt
 :46-219) and the vendored g2o engine itself (src/extra/g2o) with one batched
-TPU formulation:
+formulation:
 
   * The observation graph comes straight from the map's kf_mp table
     (build_obs_lists): edges are [P, M] (point, observing-KF) pairs with a
@@ -11,7 +11,7 @@ TPU formulation:
   * Per-iteration: batched residuals/Jacobians for every edge at once ->
     per-point 3x3 Hpp + per-camera 6x6 Hcc via segment scatter -> dense
     Schur-reduced camera system S [6K, 6K] assembled by scatter-adding
-    M x M per-point coupling blocks -> one dense Cholesky solve (MXU) ->
+    M x M per-point coupling blocks -> one dense Cholesky solve ->
     batched landmark back-substitution.
   * Fixed cameras (the reference's frontier KFs / KF0) stay in the system
     with a huge diagonal prior instead of being removed — static shapes,
@@ -21,15 +21,15 @@ TPU formulation:
     exactly like the reference's two-stage 5+10 iteration schedule.
 
 The dense reduced camera system is deliberate: for K <= a few hundred KFs a
-[6K, 6K] Cholesky is a single large MXU op, far faster on TPU than sparse
-pointer-chasing — and it is the unit that distributes across a device mesh
+[6K, 6K] Cholesky is one dense solver call instead of sparse
+pointer-chasing, and it is the unit that distributes across a device mesh
 (psum of per-shard S contributions; see parallel/).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -37,30 +37,14 @@ import jax.numpy as jnp
 from sdslam_tpu.geometry import lie
 from sdslam_tpu.geometry.camera import CameraModel
 from sdslam_tpu.mapping import map_state as M
-from sdslam_tpu.ops.pallas import ba_schur_kernel as bsk
 
-from sdslam_tpu.solvers.ba_const import (  # noqa: F401 (re-exported)
-    CHI2_MONO,
-    CHI2_STEREO,
-    FIXED_PRIOR,
-    HUBER_MONO,
-    HUBER_STEREO,
-)
-
-
-# Pallas edge-assembly kernel gate: resolved once at first trace. The kernel
-# targets real TPU hardware (Mosaic); other backends use the XLA fallback.
-_EDGE_KERNEL: Optional[bool] = None
-
-
-def _edge_kernel_enabled() -> bool:
-    global _EDGE_KERNEL
-    if _EDGE_KERNEL is None:
-        try:
-            _EDGE_KERNEL = jax.devices()[0].platform == "tpu"
-        except Exception:
-            _EDGE_KERNEL = False
-    return _EDGE_KERNEL
+# Huber deltas are sqrt(5.991) / sqrt(7.815): the 95% chi2 quantiles for 2/3
+# DoF the reference uses (Optimizer.cc:87-88)
+CHI2_MONO = 5.991
+CHI2_STEREO = 7.815
+HUBER_MONO = 2.4477
+HUBER_STEREO = 2.7955
+FIXED_PRIOR = 1e12  # diagonal prior pinning fixed cameras
 
 
 class BAResult(NamedTuple):
@@ -72,26 +56,23 @@ class BAResult(NamedTuple):
 
 class _EdgeStatic(NamedTuple):
     """Per-edge observation data that never changes across LM iterations —
-    gathered ONCE per bundle_adjust (the per-iteration [P,M] gathers from the
-    keyframe tables were a dominant BA cost on TPU).
+    gathered ONCE per bundle_adjust instead of once per LM iteration.
 
-    Layout is OBSERVATION-MAJOR [Mo, P] (r5 v2): a point's observations sit
-    on the sublane axis and points on the 128-lane axis, so the fused Schur
-    kernel (ops/pallas/ba_schur_kernel.py) can do per-point reductions and
-    the per-camera Z-scatter in-kernel. Flat edge index e = m * P + p."""
+    Layout is OBSERVATION-MAJOR [Mo, P]: a point's observations are the
+    leading axis, so per-point reductions are sums over axis 0. Flat edge
+    index e = m * P + p."""
 
     uv_obs: jnp.ndarray  # [Mo,P,2]
     ur_obs: jnp.ndarray  # [Mo,P]
     inv_sigma2: jnp.ndarray  # [Mo,P]
     stereo: jnp.ndarray  # [Mo,P] bool
     cam_onehot: jnp.ndarray  # [Mo,P,K] f32 one-hot of the observing camera
-    cam_idx: jnp.ndarray  # [Mo,P] f32 clipped camera index
 
 
 def _prep_edges(obs_kf, obs_kp, kf_uv_und, kf_uright, kf_octave, scale_factor, K):
     c = jnp.clip(obs_kf, 0, K - 1).T  # [M,P]
     k = jnp.clip(obs_kp, 0, kf_uv_und.shape[1] - 1).T
-    # one packed (u, v, u_r, octave) gather: ~10 ns/index, 4 fields/index
+    # one packed (u, v, u_r, octave) gather: 4 fields per index
     fields = jnp.concatenate(
         [
             kf_uv_und,
@@ -106,8 +87,7 @@ def _prep_edges(obs_kf, obs_kp, kf_uv_und, kf_uright, kf_octave, scale_factor, K
     inv_sigma2 = 1.0 / scale_factor ** (2.0 * g[..., 3])
     stereo = ur_obs >= 0
     onehot = (c[..., None] == jnp.arange(K)[None, None, :]).astype(jnp.float32)
-    return _EdgeStatic(uv_obs, ur_obs, inv_sigma2, stereo, onehot,
-                       c.astype(jnp.float32))
+    return _EdgeStatic(uv_obs, ur_obs, inv_sigma2, stereo, onehot)
 
 
 def _chol3x3(h00, h01, h02, h11, h12, h22):
@@ -144,15 +124,9 @@ def _schur_terms(
     this per shard, psum (S0, bs, cost), apply the prior globally, solve
     replicated, back-substitute locally (parallel/dist_ba.py).
 
-    Layout (r5 v2): edges live in OBSERVATION-MAJOR [Mo, P] planes (points
-    on the minor/lane axis) so the fused kernel can reduce per point on
-    sublanes and scatter the Schur factor Z per camera in-kernel
-    (ops/pallas/ba_schur_kernel.py). The r4 flat-[E] formulation left
-    ~180 us/iteration in the XLA around its edge kernel — a 61 us
-    point-batched one-hot matmul for Z plus ~117 us of layout copies
-    (scripts/diag_profile_ba.py, r5 measurement). Per-camera reductions
-    (Hcc/bc columns, V·ybp) remain clean [C,E] x [E,K] one-hot MXU matmuls;
-    S = Hcc - Z Z^T is 3 plain [6K,P] x [P,6K] MXU matmuls."""
+    Edges live in OBSERVATION-MAJOR [Mo, P] planes. Per-camera reductions
+    (Hcc/bc columns, V·ybp) are [C,E] x [E,K] one-hot matmuls; S = Hcc -
+    Z Z^T is 3 plain [6K,P] x [P,6K] matmuls."""
     K = kf_Tcw.shape[0]
     Mo, P = es.ur_obs.shape
     E = Mo * P
@@ -160,216 +134,167 @@ def _schur_terms(
     f32 = jnp.float32
 
     Uflat = es.cam_onehot.reshape(E, K)
-    # camera pose per edge, via one MXU matmul (no scattered [4,4]-gather);
-    # contracted to [16,E] DIRECTLY — the (U @ T).T form materialized an
-    # [E,16] intermediate plus a 1.3 MB relayout copy
+    # camera pose per edge, via one one-hot matmul, contracted to [16,E]
+    # directly (the (U @ T).T form materializes an [E,16] intermediate)
     T16 = jax.lax.dot_general(
         kf_Tcw.reshape(K, 16), Uflat, (((0,), (1,)), ((), ())),
         preferred_element_type=f32, precision=jax.lax.Precision.HIGHEST,
     )  # [16, E]
     okT = obs_ok.T  # [Mo,P]
-    cam_act_e = (Uflat @ cam_active.astype(f32)).reshape(Mo, P)
+    # one-hot times 0/1: exact at any matmul precision
+    cam_act_e = (lie.mm(Uflat, cam_active.astype(f32))).reshape(Mo, P)
     pt_act_e = jnp.broadcast_to(pt_active[None, :], (Mo, P)).astype(f32)
 
-    if _edge_kernel_enabled():
-        # fused Pallas pass: per-edge math + per-point elimination + the
-        # per-camera Z-scatter in ONE kernel (module doc of ba_schur_kernel)
-        emit_zt = K <= bsk.ZT_MAX_K
-        packed = jnp.concatenate(
-            [
-                T16.reshape(16, Mo, P),
-                jnp.broadcast_to(pt_pos.T[:, None, :], (3, Mo, P)),
-                es.uv_obs[None, ..., 0],
-                es.uv_obs[None, ..., 1],
-                es.ur_obs[None],
-                es.inv_sigma2[None],
-                es.stereo.astype(f32)[None],
-                okT.astype(f32)[None],
-                cam_act_e[None],
-                pt_act_e[None],
-                es.cam_idx[None],
-            ],
-            axis=0,
-        )  # [28, Mo, P]
-        edge, rows, zt = bsk.ba_edge_schur(
-            packed, lm_lambda, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
-            use_huber, K, emit_zt=emit_zt,
+    # explicit flat-[E] scalar formulas, e = m * P + p
+    Xw = jnp.broadcast_to(pt_pos.T[:, None, :], (3, Mo, P)).reshape(3, E)
+    stereo = es.stereo.reshape(E)
+    info = es.inv_sigma2.reshape(E)
+    uv_obs = es.uv_obs.reshape(E, 2)
+    cam_e = cam_act_e.reshape(E)
+    pt_e = pt_act_e.reshape(E)
+
+    def psum(e):
+        return e.reshape(Mo, P).sum(axis=0)
+
+    r00, r01, r02, t0 = T16[0], T16[1], T16[2], T16[3]
+    r10, r11, r12, t1 = T16[4], T16[5], T16[6], T16[7]
+    r20, r21, r22, t2 = T16[8], T16[9], T16[10], T16[11]
+    X0, X1, X2 = Xw[0], Xw[1], Xw[2]
+    x = r00 * X0 + r01 * X1 + r02 * X2 + t0
+    y = r10 * X0 + r11 * X1 + r12 * X2 + t1
+    z = r20 * X0 + r21 * X1 + r22 * X2 + t2
+    zi = 1.0 / jnp.maximum(z, 1e-6)
+    zi2 = zi * zi
+    u = cam.fx * x * zi + cam.cx
+    v = cam.fy * y * zi + cam.cy
+    ur = u - cam.bf * zi
+
+    res0 = u - uv_obs[:, 0]
+    res1 = v - uv_obs[:, 1]
+    res2 = jnp.where(stereo, ur - es.ur_obs.reshape(E), 0.0)
+    ok = (okT.reshape(E) & (z > 0.05)).astype(f32)
+
+    chi2 = (res0 * res0 + res1 * res1 + res2 * res2) * info
+    hub = jnp.where(stereo, HUBER_STEREO, HUBER_MONO)
+    d2 = hub * hub
+    rho = jnp.where(chi2 <= d2, chi2, 2.0 * hub * jnp.sqrt(chi2 + 1e-12) - d2)
+    cost_cur = jnp.sum(rho * ok)
+
+    w = info * ok
+    if use_huber:
+        w = w * jnp.minimum(
+            1.0, hub / jnp.maximum(jnp.sqrt(chi2 + 1e-12), 1e-9)
         )
-        W_pm = edge[0:18]  # [18, Mo, P]
-        HG = (edge[18:45].reshape(27, E) @ Uflat).T  # [K,27]
-        Vyb = (edge[45:51].reshape(6, E) @ Uflat).T  # [K,6]
-        s00, s01, s02, s11, s12, s22 = (rows[i] for i in range(6))
-        Hpp_inv = jnp.stack(
-            [
-                jnp.stack([s00, s01, s02], -1),
-                jnp.stack([s01, s11, s12], -1),
-                jnp.stack([s02, s12, s22], -1),
-            ],
-            -2,
-        )  # [P,3,3]
-        ybp = rows[6:9].T  # [P,3]
-        cost_cur = jnp.sum(rows[9])
-        if zt is not None:
-            K6 = 6 * K
-            S_dense = -(
-                zt[0:K6] @ zt[0:K6].T
-                + zt[K6:2 * K6] @ zt[K6:2 * K6].T
-                + zt[2 * K6:] @ zt[2 * K6:].T
-            )
-        else:
-            S_dense = _schur_S_from_ze(edge[51:69], es.cam_onehot, K)
-    else:
-        # XLA fallback (CPU tests / non-TPU backends): identical math as
-        # explicit flat-[E] scalar formulas, e = m * P + p
-        Xw = jnp.broadcast_to(pt_pos.T[:, None, :], (3, Mo, P)).reshape(3, E)
-        stereo = es.stereo.reshape(E)
-        info = es.inv_sigma2.reshape(E)
-        uv_obs = es.uv_obs.reshape(E, 2)
-        cam_e = cam_act_e.reshape(E)
-        pt_e = pt_act_e.reshape(E)
 
-        def psum(e):
-            return e.reshape(Mo, P).sum(axis=0)
-
-        r00, r01, r02, t0 = T16[0], T16[1], T16[2], T16[3]
-        r10, r11, r12, t1 = T16[4], T16[5], T16[6], T16[7]
-        r20, r21, r22, t2 = T16[8], T16[9], T16[10], T16[11]
-        X0, X1, X2 = Xw[0], Xw[1], Xw[2]
-        x = r00 * X0 + r01 * X1 + r02 * X2 + t0
-        y = r10 * X0 + r11 * X1 + r12 * X2 + t1
-        z = r20 * X0 + r21 * X1 + r22 * X2 + t2
-        zi = 1.0 / jnp.maximum(z, 1e-6)
-        zi2 = zi * zi
-        u = cam.fx * x * zi + cam.cx
-        v = cam.fy * y * zi + cam.cy
-        ur = u - cam.bf * zi
-
-        res0 = u - uv_obs[:, 0]
-        res1 = v - uv_obs[:, 1]
-        res2 = jnp.where(stereo, ur - es.ur_obs.reshape(E), 0.0)
-        ok = (okT.reshape(E) & (z > 0.05)).astype(f32)
-
-        chi2 = (res0 * res0 + res1 * res1 + res2 * res2) * info
-        hub = jnp.where(stereo, HUBER_STEREO, HUBER_MONO)
-        d2 = hub * hub
-        rho = jnp.where(chi2 <= d2, chi2, 2.0 * hub * jnp.sqrt(chi2 + 1e-12) - d2)
-        cost_cur = jnp.sum(rho * ok)
-
-        w = info * ok
-        if use_huber:
-            w = w * jnp.minimum(
-                1.0, hub / jnp.maximum(jnp.sqrt(chi2 + 1e-12), 1e-9)
-            )
-
-        # JX rows (d residual / d Xc), explicit [E] formulas
-        fx, fy, bf = cam.fx, cam.fy, cam.bf
-        st = stereo.astype(f32)
-        JX = (
-            (fx * zi, jnp.zeros_like(zi), -fx * x * zi2),
-            (jnp.zeros_like(zi), fy * zi, -fy * y * zi2),
-            (st * fx * zi, jnp.zeros_like(zi), st * (-fx * x * zi2 + bf * zi2)),
-        )
-        # Jc[r] = [JX[r] | Xc x JX[r]] (left-perturbation), masked by
-        # cam_active; Jp[r] = JX[r] @ R, masked by pt_active
-        Jc = []
-        Jp = []
-        for (a, b, c_) in JX:
-            cx_ = c_ * y - b * z
-            cy_ = a * z - c_ * x
-            cz_ = b * x - a * y
-            Jc.append(tuple(cam_e * q for q in (a, b, c_, cx_, cy_, cz_)))
-            Jp.append(
-                tuple(
-                    pt_e * q
-                    for q in (
-                        a * r00 + b * r10 + c_ * r20,
-                        a * r01 + b * r11 + c_ * r21,
-                        a * r02 + b * r12 + c_ * r22,
-                    )
+    # JX rows (d residual / d Xc), explicit [E] formulas
+    fx, fy, bf = cam.fx, cam.fy, cam.bf
+    st = stereo.astype(f32)
+    JX = (
+        (fx * zi, jnp.zeros_like(zi), -fx * x * zi2),
+        (jnp.zeros_like(zi), fy * zi, -fy * y * zi2),
+        (st * fx * zi, jnp.zeros_like(zi), st * (-fx * x * zi2 + bf * zi2)),
+    )
+    # Jc[r] = [JX[r] | Xc x JX[r]] (left-perturbation), masked by
+    # cam_active; Jp[r] = JX[r] @ R, masked by pt_active
+    Jc = []
+    Jp = []
+    for (a, b, c_) in JX:
+        cx_ = c_ * y - b * z
+        cy_ = a * z - c_ * x
+        cz_ = b * x - a * y
+        Jc.append(tuple(cam_e * q for q in (a, b, c_, cx_, cy_, cz_)))
+        Jp.append(
+            tuple(
+                pt_e * q
+                for q in (
+                    a * r00 + b * r10 + c_ * r20,
+                    a * r01 + b * r11 + c_ * r21,
+                    a * r02 + b * r12 + c_ * r22,
                 )
             )
-        res = (res0, res1, res2)
+        )
+    res = (res0, res1, res2)
 
-        def acc_rows(Ja, Jb, na, nb, sym):
-            """Per-edge H entries sum_r w*Ja[r,i]*Jb[r,j] -> list of [E]."""
-            out = []
-            for i in range(na):
-                for j in range(i if sym else 0, nb):
-                    out.append(w * sum(Ja[r][i] * Jb[r][j] for r in range(3)))
-            return out
+    def acc_rows(Ja, Jb, na, nb, sym):
+        """Per-edge H entries sum_r w*Ja[r,i]*Jb[r,j] -> list of [E]."""
+        out = []
+        for i in range(na):
+            for j in range(i if sym else 0, nb):
+                out.append(w * sum(Ja[r][i] * Jb[r][j] for r in range(3)))
+        return out
 
-        # per-point 3x3 Hpp (6 sym comps) + bp, reduced over each pt's M obs
-        hpp = [psum(e) for e in acc_rows(Jp, Jp, 3, 3, True)]
-        bp = jnp.stack(
-            [
-                -psum(w * sum(Jp[r][i] * res[r] for r in range(3)))
-                for i in range(3)
-            ],
-            axis=1,
-        )  # [P,3]
+    # per-point 3x3 Hpp (6 sym comps) + bp, reduced over each pt's M obs
+    hpp = [psum(e) for e in acc_rows(Jp, Jp, 3, 3, True)]
+    bp = jnp.stack(
+        [
+            -psum(w * sum(Jp[r][i] * res[r] for r in range(3)))
+            for i in range(3)
+        ],
+        axis=1,
+    )  # [P,3]
 
-        # per-camera 6x6 Hcc (21 sym comps) + bc (6): one MXU matmul
-        g_cols = acc_rows(Jc, Jc, 6, 6, True)
-        g_cols += [
-            -w * sum(Jc[r][i] * res[r] for r in range(3)) for i in range(6)
-        ]
-        w_cols = [
-            w * sum(Jc[r][i] * Jp[r][j] for r in range(3))
-            for i in range(6)
-            for j in range(3)
-        ]
-        W_pm = jnp.stack(w_cols, axis=0).reshape(18, Mo, P)
-        G = jnp.stack(g_cols, axis=1)  # [E,27]
-        HG = hp("ek,ec->kc", Uflat, G)  # [K,27]
+    # per-camera 6x6 Hcc (21 sym comps) + bc (6): one matmul
+    g_cols = acc_rows(Jc, Jc, 6, 6, True)
+    g_cols += [
+        -w * sum(Jc[r][i] * res[r] for r in range(3)) for i in range(6)
+    ]
+    w_cols = [
+        w * sum(Jc[r][i] * Jp[r][j] for r in range(3))
+        for i in range(6)
+        for j in range(3)
+    ]
+    W_pm = jnp.stack(w_cols, axis=0).reshape(18, Mo, P)
+    G = jnp.stack(g_cols, axis=1)  # [E,27]
+    HG = hp("ek,ec->kc", Uflat, G)  # [K,27]
 
-        # damped point blocks: closed-form Cholesky + inverse ([P] rows),
-        # Hpp^-1 = Linv^T Linv (identical formula to the kernel path)
-        h00, h01, h02, h11, h12, h22 = hpp
-        damp = lm_lambda * jnp.maximum((h00 + h11 + h22) / 3.0, 1e-8) + 1e-9
-        h00, h11, h22 = h00 + damp, h11 + damp, h22 + damp
-        l00, l10, l20, l11, l21, l22 = _chol3x3(h00, h01, h02, h11, h12, h22)
-        i00 = 1.0 / l00
-        i11 = 1.0 / l11
-        i22 = 1.0 / l22
-        i10 = -l10 * i00 * i11
-        i20 = (l10 * l21 - l20 * l11) * i00 * i11 * i22
-        i21 = -l21 * i11 * i22
-        s00 = i00 * i00 + i10 * i10 + i20 * i20
-        s01 = i10 * i11 + i20 * i21
-        s02 = i20 * i22
-        s11 = i11 * i11 + i21 * i21
-        s12 = i21 * i22
-        s22 = i22 * i22
-        Hpp_inv = jnp.stack(
-            [
-                jnp.stack([s00, s01, s02], -1),
-                jnp.stack([s01, s11, s12], -1),
-                jnp.stack([s02, s12, s22], -1),
-            ],
-            -2,
-        )  # [P,3,3]
-        ybp = hp("pij,pj->pi", Hpp_inv, bp)  # [P,3]
+    # damped point blocks: closed-form Cholesky + inverse ([P] rows),
+    # Hpp^-1 = Linv^T Linv
+    h00, h01, h02, h11, h12, h22 = hpp
+    damp = lm_lambda * jnp.maximum((h00 + h11 + h22) / 3.0, 1e-8) + 1e-9
+    h00, h11, h22 = h00 + damp, h11 + damp, h22 + damp
+    l00, l10, l20, l11, l21, l22 = _chol3x3(h00, h01, h02, h11, h12, h22)
+    i00 = 1.0 / l00
+    i11 = 1.0 / l11
+    i22 = 1.0 / l22
+    i10 = -l10 * i00 * i11
+    i20 = (l10 * l21 - l20 * l11) * i00 * i11 * i22
+    i21 = -l21 * i11 * i22
+    s00 = i00 * i00 + i10 * i10 + i20 * i20
+    s01 = i10 * i11 + i20 * i21
+    s02 = i20 * i22
+    s11 = i11 * i11 + i21 * i21
+    s12 = i21 * i22
+    s22 = i22 * i22
+    Hpp_inv = jnp.stack(
+        [
+            jnp.stack([s00, s01, s02], -1),
+            jnp.stack([s01, s11, s12], -1),
+            jnp.stack([s02, s12, s22], -1),
+        ],
+        -2,
+    )  # [P,3,3]
+    ybp = hp("pij,pj->pi", Hpp_inv, bp)  # [P,3]
 
-        # Z = V Linv^T at the edge level (Linv rows fold into W), then the
-        # point-batched one-hot contraction scatters it per camera
-        W6 = W_pm.reshape(6, 3, Mo, P)
-        b2 = lambda a: a[None, None, :]  # [P] -> [1,1,P]
-        Ze = jnp.concatenate(
-            [
-                W6[:, 0] * b2(i00),
-                W6[:, 0] * b2(i10) + W6[:, 1] * b2(i11),
-                W6[:, 0] * b2(i20) + W6[:, 1] * b2(i21) + W6[:, 2] * b2(i22),
-            ],
-            axis=0,
-        )  # [18, Mo, P], channel j*6+i
-        S_dense = _schur_S_from_ze(Ze, es.cam_onehot, K)
+    # Z = V Linv^T at the edge level (Linv rows fold into W), then the
+    # point-batched one-hot contraction scatters it per camera
+    W6 = W_pm.reshape(6, 3, Mo, P)
+    b2 = lambda a: a[None, None, :]  # [P] -> [1,1,P]
+    Ze = jnp.concatenate(
+        [
+            W6[:, 0] * b2(i00),
+            W6[:, 0] * b2(i10) + W6[:, 1] * b2(i11),
+            W6[:, 0] * b2(i20) + W6[:, 1] * b2(i21) + W6[:, 2] * b2(i22),
+        ],
+        axis=0,
+    )  # [18, Mo, P], channel j*6+i
+    S_dense = _schur_S_from_ze(Ze, es.cam_onehot, K)
 
-        # V·ybp contracted at the EDGE level ([6,E] @ [E,K] matmul)
-        Vyb = hp(
-            "ce,ek->kc",
-            jnp.sum(W6 * ybp.T[None, :, None, :], axis=1).reshape(6, E),
-            Uflat,
-        )  # [K,6]
+    # V·ybp contracted at the EDGE level ([6,E] @ [E,K] matmul)
+    Vyb = hp(
+        "ce,ek->kc",
+        jnp.sum(W6 * ybp.T[None, :, None, :], axis=1).reshape(6, E),
+        Uflat,
+    )  # [K,6]
 
     # symmetric 6x6 from 21 packed columns via ONE gather (a scatter loop
     # here cost ~40 unfused kernels per LM iteration)
@@ -397,15 +322,7 @@ def _schur_terms(
 
 def _schur_S_from_ze(Ze, cam_onehot, K: int):
     """-Z Z^T from edge-level Ze [18, Mo, P] (channel j*6+i): the
-    point-batched one-hot scatter + 3 plain [6K,P] x [P,6K] MXU matmuls.
-    Used when the in-kernel Z-scatter is off (XLA fallback / K > ZT_MAX_K).
-
-    r5 notes kept from the A/B slope-timing: THREE "cleaner" relayout-free
-    reformulations were SLOWER through the remote compiler (420/556 vs
-    322 us/iter) — batched dot_general with non-leading batch dims, the
-    (p,j)-contracting [K,6,K,6] dot, and the i-major [3P,6,K] B^T B form
-    all lower to broadcast-multiply-reduce fusions instead of MXU
-    convolutions. Keep batch dims LEADING and S as plain 2D matmuls."""
+    point-batched one-hot scatter + 3 plain [6K,P] x [P,6K] matmuls."""
     Mo, P = Ze.shape[1], Ze.shape[2]
     Zpm = Ze.transpose(2, 0, 1)  # [P,18,Mo]
     Zb = jax.lax.dot_general(
@@ -415,7 +332,8 @@ def _schur_S_from_ze(Ze, cam_onehot, K: int):
     )  # [P,18,K]
     Z4 = Zb.transpose(2, 1, 0).reshape(K, 3, 6, P)  # (k, j, i, p)
     Zt = [Z4[:, j].reshape(K * 6, P) for j in range(3)]
-    return -(Zt[0] @ Zt[0].T + Zt[1] @ Zt[1].T + Zt[2] @ Zt[2].T)
+    mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+    return -(mm(Zt[0], Zt[0].T) + mm(Zt[1], Zt[1].T) + mm(Zt[2], Zt[2].T))
 
 
 def _apply_prior_and_solve(S0, bs, cam_active, lm_lambda, K: int):
@@ -433,12 +351,6 @@ def _apply_prior_and_solve(S0, bs, cam_active, lm_lambda, K: int):
         prior[:, None, None] * jnp.broadcast_to(jnp.eye(6), (K, 6, 6))
     )
     S_flat = S4.reshape(K * 6, K * 6)
-    # Solver gate resolved ON DATA (r5): the cho_factor/cho_solve
-    # custom-calls are ~51 us at [144,144] and the fused Pallas
-    # factor+solve (ops/pallas/chol_kernel.py, parity-tested) measured
-    # 98 us — a blocked Cholesky is a ~2400-op sequential scalar/row chain
-    # whose per-op Mosaic latency exceeds the custom-calls' fixed cost at
-    # this size. Kept as the documented dead end; re-measure if K grows.
     L, low = jax.scipy.linalg.cho_factor(S_flat, lower=True)
     dc = jax.scipy.linalg.cho_solve((L, low), bs.reshape(K * 6)).reshape(K, 6)
     return dc * cam_active[:, None]
@@ -449,7 +361,7 @@ def _back_substitute(dc, Uflat, W_pm, Hpp_inv, ybp, pt_active):
     point-local (shardable)."""
     hp = functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
     _, Mo, P = W_pm.shape
-    # [6,E] directly (the (U @ dc).T form paid a 0.5 MB relayout copy)
+    # [6,E] directly (the (U @ dc).T form materializes an [E,6] copy)
     dc_e = jax.lax.dot_general(
         dc, Uflat, (((0,), (1,)), ((), ())),
         preferred_element_type=jnp.float32,
@@ -481,7 +393,7 @@ def _gn_iteration(
     dc = _apply_prior_and_solve(S0, bs, cam_active, lm_lambda, K)
     dp = _back_substitute(dc, Uflat, W_pm, Hpp_inv, ybp, pt_active)
     kf_Tcw_new = jnp.where(
-        cam_active[:, None, None], lie.se3_exp(dc) @ kf_Tcw, kf_Tcw
+        cam_active[:, None, None], lie.mm(lie.se3_exp(dc), kf_Tcw), kf_Tcw
     )
     pt_pos_new = pt_pos + dp
     return kf_Tcw_new, pt_pos_new, cost_cur
@@ -667,7 +579,7 @@ def local_ba(
     their points; frontier KFs observing those points stay fixed
     (Optimizer::LocalBundleAdjustment, Optimizer.cc:417-714).
 
-    TPU design: the local problem is COMPACTED into small static shapes —
+    Design: the local problem is COMPACTED into small static shapes —
     [KL] camera slots (locals + newest frontier anchors) and [PL] point
     slots — before the LM iterations. The full-pool formulation spent ~97%
     of its FLOPs on empty slots (a 6-KF/1.5k-point local window inside a
@@ -689,7 +601,7 @@ def local_ba(
     )
     local = local.at[oldest].set(False)
     # active points: observed by any local KF. With a shared incidence
-    # matrix both masks are MXU matmuls; the scatter+gather formulation
+    # matrix both masks are matmuls; the scatter+gather formulation
     # paid two [K*N]-element table passes (~0.65 ms each at 64x1024).
     # `inc` may be a few mutations stale (computed at KF insertion, before
     # neighbor fusion rebinds points) — a merge winner observed only by
@@ -733,7 +645,7 @@ def local_ba(
     oldest_sel = jnp.argmin(sel_fid)
     cam_act = cam_act.at[oldest_sel].set(cam_act[oldest_sel] & any_fixed)
 
-    # --- point compaction (O(P) cumsum; top_k is a bitonic sort on TPU) ---
+    # --- point compaction (O(P) cumsum instead of a top_k sort) ---
     pt_idx, pt_in, pt_remap = M.compact_indices(pt_local, PL)
     sub_X = ms.pt_pos[pt_idx]
 
@@ -763,8 +675,7 @@ def local_ba(
         (row_s.T[..., None] == jnp.arange(KL)[None, None, :])
         & obs_ok.T[..., None]
     ).astype(jnp.float32)
-    es = _EdgeStatic(uv_obs, ur_obs, inv_sigma2, ur_obs >= 0, onehot,
-                     row_s.T.astype(jnp.float32))
+    es = _EdgeStatic(uv_obs, ur_obs, inv_sigma2, ur_obs >= 0, onehot)
 
     n_obs = jnp.sum(obs_ok, axis=1)
     n_stereo = jnp.sum(obs_ok & es.stereo.T, axis=1)

@@ -6,7 +6,7 @@ PnPsolver.{h,cc} — compiled but dead there; BASELINE.json's north star names
 (centroid + PCA axes), barycentric coordinates, null-space betas (cases
 N=1, 2) and Horn alignment for [R|t], inside a vmapped RANSAC.
 
-TPU notes: each hypothesis is a 12x12 eigendecomposition + small fixed
+Design: each hypothesis is a 12x12 eigendecomposition + small fixed
 algebra — a perfect vmap batch (the reference iterates hypotheses on the
 host, PnPsolver.cc:~160)."""
 
@@ -18,6 +18,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from sdslam_tpu.geometry import lie
 from sdslam_tpu.geometry.camera import CameraModel
 from sdslam_tpu.solvers.sim3_solver import umeyama_sim3
 
@@ -35,7 +36,7 @@ def _control_points(Xw, w):
     wsum = jnp.maximum(jnp.sum(w), 1e-6)
     c0 = jnp.sum(Xw * w[:, None], 0) / wsum
     Xc = (Xw - c0) * w[:, None]
-    cov = Xc.T @ Xc / wsum
+    cov = lie.mm(Xc.T, Xc) / wsum
     lam, V = jnp.linalg.eigh(cov)
     lam = jnp.maximum(lam, 1e-9)
     C = jnp.stack(
@@ -71,7 +72,7 @@ def _solve_cam_controls(cam, alphas, uv, w):
         ) for j in range(4)], -1,
     )
     Mrows = jnp.concatenate([r1 * w[:, None], r2 * w[:, None]], 0)  # [2N,12]
-    MtM = Mrows.T @ Mrows
+    MtM = lie.mm(Mrows.T, Mrows)
     _, V = jnp.linalg.eigh(MtM)
     v1 = V[:, 0].reshape(4, 3)
     v2 = V[:, 1].reshape(4, 3)
@@ -85,12 +86,12 @@ def _solve_cam_controls(cam, alphas, uv, w):
 
 
 def _pose_from_controls(cam, Xw, uv, w, alphas, Cc, Cw):
-    Xc = alphas @ Cc  # [N,3]
+    Xc = lie.mm(alphas, Cc)  # [N,3]
     # enforce positive depth (sign ambiguity of the null vector)
     sign = jnp.sign(jnp.sum(jnp.where(w > 0, Xc[:, 2], 0.0)))
     Xc = Xc * jnp.where(sign == 0, 1.0, sign)
     R, t, _ = umeyama_sim3(Xw, Xc, w > 0, fix_scale=True)
-    Xc_hat = Xw @ R.T + t
+    Xc_hat = lie.mm(Xw, R.T) + t
     u = cam.fx * Xc_hat[:, 0] / jnp.maximum(Xc_hat[:, 2], 1e-6) + cam.cx
     v = cam.fy * Xc_hat[:, 1] / jnp.maximum(Xc_hat[:, 2], 1e-6) + cam.cy
     err2 = (u - uv[:, 0]) ** 2 + (v - uv[:, 1]) ** 2
@@ -154,7 +155,7 @@ def ransac_epnp(
     def hyp(idx):
         m = jnp.zeros((N,), bool).at[idx].set(True) & valid
         R, t, _ = epnp(cam, Xw, uv, m)
-        Xc = Xw @ R.T + t
+        Xc = lie.mm(Xw, R.T) + t
         u = cam.fx * Xc[:, 0] / jnp.maximum(Xc[:, 2], 1e-6) + cam.cx
         v = cam.fy * Xc[:, 1] / jnp.maximum(Xc[:, 2], 1e-6) + cam.cy
         e2 = (u - uv[:, 0]) ** 2 + (v - uv[:, 1]) ** 2
@@ -165,14 +166,14 @@ def ransac_epnp(
     best = jnp.argmax(counts)
     # refine on the best inlier set
     R, t = Rs[best], ts[best]
-    Xc = Xw @ R.T + t
+    Xc = lie.mm(Xw, R.T) + t
     u = cam.fx * Xc[:, 0] / jnp.maximum(Xc[:, 2], 1e-6) + cam.cx
     v = cam.fy * Xc[:, 1] / jnp.maximum(Xc[:, 2], 1e-6) + cam.cy
     inl = valid & ((u - uv[:, 0]) ** 2 + (v - uv[:, 1]) ** 2 < inlier_th_px**2) & (
         Xc[:, 2] > 0
     )
     R, t, _ = epnp(cam, Xw, uv, inl)
-    Xc = Xw @ R.T + t
+    Xc = lie.mm(Xw, R.T) + t
     u = cam.fx * Xc[:, 0] / jnp.maximum(Xc[:, 2], 1e-6) + cam.cx
     v = cam.fy * Xc[:, 1] / jnp.maximum(Xc[:, 2], 1e-6) + cam.cy
     inl = valid & ((u - uv[:, 0]) ** 2 + (v - uv[:, 1]) ** 2 < inlier_th_px**2) & (

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from sdslam_tpu.geometry import lie
 from sdslam_tpu.geometry.camera import CameraModel
 
 CHI2_H = 5.991
@@ -62,7 +63,7 @@ def _fit_F(p1, p2):
     F = Vt[-1].reshape(3, 3)
     U, D, Vt2 = jnp.linalg.svd(F)
     D = D.at[2].set(0.0)  # rank-2 enforcement
-    return U @ jnp.diag(D) @ Vt2
+    return lie.mm(lie.mm(U, jnp.diag(D)), Vt2)
 
 
 def _fit_H(p1, p2):
@@ -90,7 +91,7 @@ def _fit_F_weighted(p1, p2, w):
     _, V = jnp.linalg.eigh(Mn)
     F = V[:, 0].reshape(3, 3)
     U, D, Vt2 = jnp.linalg.svd(F)
-    return U @ jnp.diag(D.at[2].set(0.0)) @ Vt2
+    return lie.mm(lie.mm(U, jnp.diag(D.at[2].set(0.0))), Vt2)
 
 
 def _fit_H_weighted(p1, p2, w):
@@ -112,8 +113,8 @@ def _score_F(F, uv1, uv2, valid, sigma2):
     ones = jnp.ones((uv1.shape[0], 1))
     p1 = jnp.concatenate([uv1, ones], -1)
     p2 = jnp.concatenate([uv2, ones], -1)
-    l2 = p1 @ F.T  # line in image 2
-    l1 = p2 @ F
+    l2 = lie.mm(p1, F.T)  # line in image 2
+    l1 = lie.mm(p2, F)
     num2 = jnp.sum(l2 * p2, -1) ** 2
     num1 = jnp.sum(l1 * p1, -1) ** 2
     d2 = num2 / jnp.maximum(l2[:, 0] ** 2 + l2[:, 1] ** 2, 1e-9) / sigma2
@@ -132,7 +133,7 @@ def _score_H(H, uv1, uv2, valid, sigma2):
 
     def transfer(M, a):
         ones = jnp.ones((a.shape[0], 1))
-        p = jnp.concatenate([a, ones], -1) @ M.T
+        p = lie.mm(jnp.concatenate([a, ones], -1), M.T)
         return p[:, :2] / jnp.maximum(jnp.abs(p[:, 2:]), 1e-9) * jnp.sign(p[:, 2:])
 
     e12 = jnp.sum((transfer(H, uv1) - uv2) ** 2, -1) / sigma2
@@ -164,8 +165,8 @@ def triangulate(P1, P2, uv1, uv2):
 def triangulate_linear(P1, P2, uv1, uv2):
     """Inhomogeneous DLT: fix w=1 and solve the 4x3 system by 3x3 normal
     equations — algebraically the same constraint set as `triangulate` but
-    a batched small solve instead of a batched SVD (an order of magnitude
-    faster on TPU; used in the per-keyframe triangulation hot path)."""
+    a batched small solve instead of a batched SVD (used in the
+    per-keyframe triangulation hot path)."""
     rows = jnp.stack(
         [
             uv1[:, 0, None] * P1[2] - P1[0],
@@ -180,8 +181,8 @@ def triangulate_linear(P1, P2, uv1, uv2):
     AtA = jnp.einsum("nij,nik->njk", A, A, precision=jax.lax.Precision.HIGHEST)
     Atb = jnp.einsum("nij,ni->nj", A, b, precision=jax.lax.Precision.HIGHEST)
     AtA = AtA + 1e-9 * jnp.eye(3)
-    # closed-form symmetric 3x3 solve (adjugate): jnp.linalg.solve lowers to
-    # a vmapped LU custom-call costing ~1 ms per launch on the TPU hot path
+    # closed-form symmetric 3x3 solve (adjugate): elementwise work that
+    # fuses, where jnp.linalg.solve would be a batched solver custom call
     a00, a01, a02 = AtA[:, 0, 0], AtA[:, 0, 1], AtA[:, 0, 2]
     a11, a12, a22 = AtA[:, 1, 1], AtA[:, 1, 2], AtA[:, 2, 2]
     c00 = a11 * a22 - a12 * a12
@@ -203,14 +204,14 @@ def _check_RT(cam: CameraModel, R, t, uv1, uv2, valid, sigma2):
     """Cheirality + parallax + reprojection vote for one motion hypothesis
     (Initializer::CheckRT, :752)."""
     K = cam.K
-    P1 = K @ jnp.concatenate([jnp.eye(3), jnp.zeros((3, 1))], 1)
-    P2 = K @ jnp.concatenate([R, t[:, None]], 1)
+    P1 = lie.mm(K, jnp.concatenate([jnp.eye(3), jnp.zeros((3, 1))], 1))
+    P2 = lie.mm(K, jnp.concatenate([R, t[:, None]], 1))
     X1 = triangulate(P1, P2, uv1, uv2)
     z1 = X1[:, 2]
-    X2 = X1 @ R.T + t
+    X2 = lie.mm(X1, R.T) + t
     z2 = X2[:, 2]
     # parallax between viewing rays
-    O2 = -R.T @ t
+    O2 = lie.mm(-R.T, t)
     r1 = X1 / jnp.maximum(jnp.linalg.norm(X1, axis=-1, keepdims=True), 1e-9)
     r2 = (X1 - O2) / jnp.maximum(
         jnp.linalg.norm(X1 - O2, axis=-1, keepdims=True), 1e-9
@@ -240,11 +241,11 @@ def _check_RT(cam: CameraModel, R, t, uv1, uv2, valid, sigma2):
 def _motions_from_F(cam, F):
     """E = K^T F K -> 4 candidate motions (ReconstructF, :448)."""
     K = cam.K
-    E = K.T @ F @ K
+    E = lie.mm(lie.mm(K.T, F), K)
     U, _, Vt = jnp.linalg.svd(E)
     W = jnp.asarray([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
-    R1 = U @ W @ Vt
-    R2 = U @ W.T @ Vt
+    R1 = lie.mm(lie.mm(U, W), Vt)
+    R2 = lie.mm(lie.mm(U, W.T), Vt)
     R1 = R1 * jnp.sign(jnp.linalg.det(R1))
     R2 = R2 * jnp.sign(jnp.linalg.det(R2))
     t = U[:, 2]
@@ -259,7 +260,7 @@ def _motions_from_H(cam, H):
     (ReconstructH, :537)."""
     K = cam.K
     Kinv = jnp.linalg.inv(K)
-    A = Kinv @ H @ K
+    A = lie.mm(lie.mm(Kinv, H), K)
     U, D, Vt = jnp.linalg.svd(A)
     s = jnp.linalg.det(U) * jnp.linalg.det(Vt)
     d1, d2, d3 = D[0], D[1], D[2]
@@ -284,9 +285,9 @@ def _motions_from_H(cam, H):
         )
         Rp = Rp.at[0, 0].set(ct).at[2, 2].set(ct)
         Rp = Rp.at[0, 2].set(-st[i]).at[2, 0].set(st[i])
-        R = s * U @ Rp @ Vt
+        R = lie.mm(lie.mm(s * U, Rp), Vt)
         tp = jnp.asarray([x1s[i], 0.0, -x3s[i]]) * (d1 - d3)
-        t = U @ tp
+        t = lie.mm(U, tp)
         return R, t / jnp.maximum(jnp.linalg.norm(t), 1e-9)
 
     # case d' < 0
@@ -300,9 +301,9 @@ def _motions_from_H(cam, H):
         Rp = jnp.zeros((3, 3))
         Rp = Rp.at[0, 0].set(cp).at[2, 2].set(-cp).at[1, 1].set(-1.0)
         Rp = Rp.at[0, 2].set(sp[i]).at[2, 0].set(sp[i])
-        R = s * U @ Rp @ Vt
+        R = lie.mm(lie.mm(s * U, Rp), Vt)
         tp = jnp.asarray([x1s[i], 0.0, x3s[i]]) * (d1 + d3)
-        t = U @ tp
+        t = lie.mm(U, tp)
         return R, t / jnp.maximum(jnp.linalg.norm(t), 1e-9)
 
     Rs, ts = [], []
@@ -341,10 +342,10 @@ def initialize_two_view(
         p1 = n1[idx]
         p2 = n2[idx]
         Fn = _fit_F(p1, p2)
-        F = T2.T @ Fn @ T1
+        F = lie.mm(lie.mm(T2.T, Fn), T1)
         sF, _ = _score_F(F, uv1, uv2, valid, sigma2)
         Hn = _fit_H(p1, p2)
-        H = jnp.linalg.inv(T2) @ Hn @ T1
+        H = lie.mm(lie.mm(jnp.linalg.inv(T2), Hn), T1)
         sH, _ = _score_H(H, uv1, uv2, valid, sigma2)
         return sF, F, sH, H
 
@@ -359,11 +360,11 @@ def initialize_two_view(
     for _ in range(2):
         _, inlF = _score_F(F, uv1, uv2, valid, sigma2)
         Fn = _fit_F_weighted(n1, n2, inlF.astype(jnp.float32))
-        F = T2.T @ Fn @ T1
+        F = lie.mm(lie.mm(T2.T, Fn), T1)
         SF, _ = _score_F(F, uv1, uv2, valid, sigma2)
         _, inlH = _score_H(H, uv1, uv2, valid, sigma2)
         Hn = _fit_H_weighted(n1, n2, inlH.astype(jnp.float32))
-        H = jnp.linalg.inv(T2) @ Hn @ T1
+        H = lie.mm(lie.mm(jnp.linalg.inv(T2), Hn), T1)
         SH, _ = _score_H(H, uv1, uv2, valid, sigma2)
 
     use_H = SH / jnp.maximum(SH + SF, 1e-9) > 0.40

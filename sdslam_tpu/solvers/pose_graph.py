@@ -7,10 +7,10 @@ previous loop edges and strong covisibility (>= 100 shared points), the loop
 keyframe fixed, ~20 LM iterations, then SE3 recovery [R, t/s] and map-point
 correction through each point's reference keyframe.
 
-TPU formulation: edges live in fixed-capacity arrays [E] with masks; each GN
+Formulation: edges live in fixed-capacity arrays [E] with masks; each GN
 iteration evaluates every edge residual r = log_sim3(S_meas_ij * S_j *
 S_i^-1) in one batch, assembles the dense [7K, 7K] system with one one-hot
-einsum (MXU), solves by Cholesky, and updates S_i <- exp(d_i) * S_i.
+einsum, solves by Cholesky, and updates S_i <- exp(d_i) * S_i.
 """
 
 from __future__ import annotations
@@ -89,7 +89,7 @@ def make_edges_from_covisibility(
     n_dropped = jnp.sum(flat > 0) - jnp.sum(w > 0).astype(jnp.int32)
     S_i = kf_Tcw[ei]
     S_j = kf_Tcw[ej]
-    S_ij = S_i @ lie.sim3_inv(S_j)
+    S_ij = lie.mm(S_i, lie.sim3_inv(S_j))
     if loop_i is not None:
         ei = jnp.concatenate([loop_i, ei[: max_edges - loop_i.shape[0]]])
         ej = jnp.concatenate([loop_j, ej[: max_edges - loop_i.shape[0]]])
@@ -114,7 +114,7 @@ def sim3_adjoint(S):
     batch = S.shape[:-2]
     A = jnp.zeros(batch + (7, 7), S.dtype)
     A = A.at[..., 0:3, 0:3].set(s[..., None, None] * R)
-    A = A.at[..., 0:3, 3:6].set(lie._mm(lie.hat(t), R))
+    A = A.at[..., 0:3, 3:6].set(lie.mm(lie.hat(t), R))
     A = A.at[..., 0:3, 6].set(-t)
     A = A.at[..., 3:6, 3:6].set(R)
     A = A.at[..., 6, 6].set(1.0)
@@ -144,7 +144,7 @@ def _jl_inv(r):
     perturbs the GN step direction, not the r=0 fixed point)."""
     ad = sim3_ad(r)
     eye = jnp.broadcast_to(jnp.eye(7, dtype=r.dtype), ad.shape)
-    return eye - 0.5 * ad + (1.0 / 12.0) * lie._mm(ad, ad)
+    return eye - 0.5 * ad + (1.0 / 12.0) * lie.mm(ad, ad)
 
 
 def edge_system(S_all, edges: PoseGraphEdges, K: int, fix_scale: bool):
@@ -170,11 +170,11 @@ def edge_system(S_all, edges: PoseGraphEdges, K: int, fix_scale: bool):
         linearizeOplus); the closed form replaces it outright."""
         Si = S_all[edges.i]
         Sj = S_all[edges.j]
-        A0 = edges.S_ij @ Sj @ lie.sim3_inv(Si)
+        A0 = lie.mm(lie.mm(edges.S_ij, Sj), lie.sim3_inv(Si))
         r0 = lie.sim3_log(A0)
         Jl = _jl_inv(r0)
-        Ji = -lie._mm(Jl, sim3_adjoint(A0))
-        Jj = lie._mm(Jl, sim3_adjoint(edges.S_ij))
+        Ji = -lie.mm(Jl, sim3_adjoint(A0))
+        Jj = lie.mm(Jl, sim3_adjoint(edges.S_ij))
         return r0, Ji, Jj
 
     hp = functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
@@ -211,7 +211,7 @@ def solve_and_update(S_all, H, b, kf_valid, fixed_mask, fix_scale: bool,
     delta = delta * (~fixed_or_invalid)[:, None]
     if fix_scale:
         delta = delta.at[:, 6].set(0.0)
-    return jnp.einsum("kij,kjl->kil", lie.sim3_exp(delta), S_all)
+    return lie.mm(lie.sim3_exp(delta), S_all)
 
 
 @functools.partial(jax.jit, static_argnames=("iters", "fix_scale"))

@@ -6,10 +6,11 @@ a single SE3 vertex with unary mono (2D) / stereo (3D: u, v, u_right) edges,
 rounds, Huber robust kernel dropped from round 3 on, per-octave information
 weighting (inv_sigma2 = 1/scale^(2*octave)).
 
-TPU design: all edges live in fixed [N] arrays with masks; a round is a
+Design: all edges live in fixed [N] arrays with masks; a round is a
 lax.fori_loop of GN steps on an accumulated 6x6 system (one einsum), rounds
 are a static unrolled loop; outliers are reclassified by masking, never by
-resizing — so one compiled program serves every frame.
+resizing — so one compiled program serves every frame. On a CUDA device the
+whole solve is one Pallas kernel with the same math.
 """
 
 from __future__ import annotations
@@ -22,25 +23,12 @@ import jax.numpy as jnp
 
 from sdslam_tpu.geometry import lie
 from sdslam_tpu.geometry.camera import CameraModel
+from sdslam_tpu.ops.pallas import pose_kernel as pk
 
 CHI2_MONO = 5.991  # 95% chi2 with 2 dof (Optimizer.cc:346)
 CHI2_STEREO = 7.815  # 3 dof
 HUBER_MONO = 2.4477  # sqrt(5.991)
 HUBER_STEREO = 2.7955  # sqrt(7.815)
-
-# Fused Pallas whole-solve kernel gate (ops/pallas/pose_kernel.py): the r4
-# per-op budget put the pose-GN while-loops at the top of the steady frame
-# (1.73 ms of 3.05 together with the EKF loops) — per-iteration op-dispatch
-# gaps dominate at ~1k-edge/6x6 shapes. "auto" = on TPU only; the XLA path
-# stays the CPU/test oracle. Override by assigning True/False.
-_POSE_KERNEL = "auto"
-
-
-def _pose_kernel_enabled() -> bool:
-    if _POSE_KERNEL == "auto":
-        return jax.devices()[0].platform == "tpu"
-    return bool(_POSE_KERNEL)
-
 
 class PoseOptResult(NamedTuple):
     Tcw: jnp.ndarray  # [4,4]
@@ -72,7 +60,7 @@ def _residuals_jac(cam: CameraModel, Tcw, X, uv_obs, ur_obs, stereo_mask):
     JX = jnp.stack([Ju, Jv, Jr], axis=-2)  # [N,3,3]
     # dXc/dxi for left perturbation: [I | -hat(Xc)]
     dX = jnp.concatenate([jnp.broadcast_to(jnp.eye(3), Xc.shape[:-1] + (3, 3)), -lie.hat(Xc)], axis=-1)
-    J = jnp.einsum("...ij,...jk->...ik", JX, dX)  # [N,3,6]
+    J = lie.mm(JX, dX)  # [N,3,6]
     # third (u_right) row only participates for stereo edges
     ones = jnp.ones_like(x)
     row_mask = jnp.stack([ones, ones, stereo_mask.astype(x.dtype)], axis=-1)
@@ -82,7 +70,7 @@ def _residuals_jac(cam: CameraModel, Tcw, X, uv_obs, ur_obs, stereo_mask):
 
 
 @functools.partial(
-    jax.jit, static_argnames=("cam", "rounds", "iters_per_round", "fused")
+    jax.jit, static_argnames=("cam", "rounds", "iters_per_round")
 )
 def optimize_pose(
     cam: CameraModel,
@@ -97,34 +85,54 @@ def optimize_pose(
     T_prior=None,  # [4,4] motion/alignment prior pose (optional)
     prior_rot_info: float = 0.0,  # 1/sigma^2 on rotation deviation (rad^-2)
     prior_trans_info: float = 0.0,  # 1/sigma^2 on translation deviation (m^-2)
-    fused: bool = False,  # whole solve in ONE pallas launch (TPU hot path)
 ) -> PoseOptResult:
     """With T_prior set, adds a pose-prior term — the semi-direct fusion: the
     photometric aligner pins rotation far better than sparse reprojection
     does in low-parallax scenes, so its estimate enters the optimization as
-    a (typically rotation-weighted) prior rather than only an init."""
+    a (typically rotation-weighted) prior rather than only an init.
+
+    On a CUDA device the solve is one Pallas kernel
+    (ops/pallas/pose_kernel.py); elsewhere the same math runs as XLA loops."""
     N = X.shape[0]
     if ur_obs is None:
         ur_obs = jnp.full((N,), -1.0, jnp.float32)
-    stereo = ur_obs >= 0
-    if fused and _pose_kernel_enabled():
-        from sdslam_tpu.ops.pallas import pose_kernel as pk
+    has_prior = T_prior is not None
+    if not has_prior:
+        T_prior = jnp.eye(4, dtype=jnp.float32)
+    args = (Tcw_init, X, uv_obs, inv_sigma2, valid, ur_obs, T_prior,
+            jnp.asarray(prior_rot_info, jnp.float32),
+            jnp.asarray(prior_trans_info, jnp.float32))
 
-        edata = pk.pack_edges(X, uv_obs, ur_obs, inv_sigma2, valid, stereo)
-        Tp_inv = (
-            lie.se3_inv(T_prior) if T_prior is not None
-            else jnp.eye(4, dtype=jnp.float32)
-        )
-        interp_mode = jax.devices()[0].platform != "tpu"
-        T, inl, n_inl, chi2 = pk.pose_optimize(
-            edata, jnp.asarray(Tcw_init, jnp.float32), Tp_inv,
-            prior_rot_info, prior_trans_info,
-            float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy),
-            float(cam.bf),
-            rounds=rounds, iters=iters_per_round,
-            has_prior=T_prior is not None, interpret=interp_mode,
-        )
-        return PoseOptResult(lie.se3_normalize(T), inl, n_inl, chi2)
+    def run(impl):
+        return lambda *a: impl(cam, *a[:6], rounds, iters_per_round,
+                               a[6] if has_prior else None, *a[7:])
+
+    return jax.lax.platform_dependent(
+        *args, cuda=run(_optimize_pose_kernel), default=run(_optimize_pose_xla)
+    )
+
+
+def _optimize_pose_kernel(cam, Tcw_init, X, uv_obs, inv_sigma2, valid, ur_obs,
+                          rounds, iters_per_round, T_prior, prior_rot_info,
+                          prior_trans_info) -> PoseOptResult:
+    N = X.shape[0]
+    Tp_inv = (lie.se3_inv(T_prior) if T_prior is not None
+              else jnp.eye(4, dtype=jnp.float32))
+    edges, scal = pk.pack(X, uv_obs, ur_obs, inv_sigma2, valid, Tcw_init,
+                          Tp_inv, prior_trans_info, prior_rot_info)
+    out, inl = pk.pose_solve(cam, edges, scal, rounds, iters_per_round,
+                             T_prior is not None)
+    T = jnp.concatenate([out[:12].reshape(3, 4),
+                         jnp.asarray([[0.0, 0.0, 0.0, 1.0]], jnp.float32)])
+    inliers = inl[:N] > 0
+    return PoseOptResult(lie.se3_normalize(T), inliers, jnp.sum(inliers),
+                         out[13])
+
+
+def _optimize_pose_xla(cam, Tcw_init, X, uv_obs, inv_sigma2, valid, ur_obs,
+                       rounds, iters_per_round, T_prior, prior_rot_info,
+                       prior_trans_info) -> PoseOptResult:
+    stereo = ur_obs >= 0
     if T_prior is not None:
         # infos may be traced scalars (e.g. gated on alignment health)
         W_prior = jnp.diag(
@@ -150,12 +158,12 @@ def optimize_pose(
             b = -jnp.einsum("nri,n,nr->i", J, w, r, precision=jax.lax.Precision.HIGHEST)
             if T_prior is not None:
                 # residual xi = log(T T_prior^-1); d(xi)/d(left-delta) ~= I
-                xi = lie.se3_log(T @ T_prior_inv)
+                xi = lie.se3_log(lie.mm(T, T_prior_inv))
                 H = H + W_prior
-                b = b - W_prior @ xi
+                b = b - lie.mm(W_prior, xi)
             Hr = H + 1e-6 * jnp.maximum(jnp.trace(H) / 6.0, 1e-8) * jnp.eye(6)
             delta = jnp.linalg.solve(Hr, b)
-            return lie.se3_exp(delta) @ T
+            return lie.mm(lie.se3_exp(delta), T)
 
         return jax.lax.fori_loop(0, iters_per_round, step, T)
 

@@ -5,7 +5,7 @@ closed-form absolute orientation inside a 3-point RANSAC loop with symmetric
 reprojection inlier checks, plus a GN refinement equivalent to
 Optimizer::OptimizeSim3 (Optimizer.cc:958-1142).
 
-TPU design: all RANSAC hypotheses are evaluated in one vmapped batch (the
+Design: all RANSAC hypotheses are evaluated in one vmapped batch (the
 reference iterates 5 hypotheses at a time on the host, Sim3Solver.cc:137-198);
 the inlier check is a dense [B, N] computation.
 """
@@ -48,14 +48,14 @@ def umeyama_sim3(X, Y, mask, fix_scale: bool = False):
     Usvd, D, Vt = jnp.linalg.svd(cov)
     det = jnp.linalg.det(Usvd) * jnp.linalg.det(Vt)
     Sfix = jnp.diag(jnp.asarray([1.0, 1.0, jnp.sign(det)]))
-    R = Usvd @ Sfix @ Vt
+    R = lie.mm(lie.mm(Usvd, Sfix), Vt)
     var_x = jnp.sum(jnp.sum((X - mu_x) ** 2, -1) * w) / wsum
     s = jnp.where(
         fix_scale,
         1.0,
         jnp.sum(D * jnp.diag(Sfix)) / jnp.maximum(var_x, 1e-9),
     )
-    t = mu_y - s * R @ mu_x
+    t = mu_y - lie.mm(s * R, mu_x)
     return R, t, s
 
 
@@ -63,9 +63,9 @@ def _sym_reproj_inliers(cam: CameraModel, R, t, s, X1, X2, th2_1, th2_2, valid):
     """Symmetric reprojection check (Sim3Solver::CheckInliers,
     Sim3Solver.cc:321-353): transform X1 (cam-1 frame) into cam 2 via S21,
     project in both directions; inlier if both reprojection errors pass."""
-    X1_in2 = s * jnp.einsum("ij,nj->ni", R, X1) + t
+    X1_in2 = s * jnp.einsum("ij,nj->ni", R, X1, precision=jax.lax.Precision.HIGHEST) + t
     sinv = 1.0 / jnp.maximum(s, 1e-9)
-    X2_in1 = sinv * jnp.einsum("ji,nj->ni", R, X2 - t)
+    X2_in1 = sinv * jnp.einsum("ji,nj->ni", R, X2 - t, precision=jax.lax.Precision.HIGHEST)
     uv12, z12 = cam_mod.project(cam, X1_in2)
     uv21, z21 = cam_mod.project(cam, X2_in1)
     uv1, z1 = cam_mod.project(cam, X1)
@@ -141,13 +141,13 @@ def optimize_sim3(
     with an edge-pair prune between them (chi2 > th2 in either direction
     drops the pair, :1077-1100).
 
-    TPU shape: the g2o vertex/edge graph becomes a 7-parameter manifold GN
+    Shape: the g2o vertex/edge graph becomes a 7-parameter manifold GN
     with all 2N residuals evaluated as one batch; the Jacobian [4N,7] comes
     from forward-mode autodiff at the tangent-space origin."""
     delta = jnp.sqrt(th2)
 
     def residuals(xi, S):
-        Sx = lie.sim3_exp(xi) @ S
+        Sx = lie.mm(lie.sim3_exp(xi), S)
         r_fwd = cam_mod.project(cam, lie.sim3_apply(Sx, X2))[0] - uv1
         r_inv = cam_mod.project(cam, lie.sim3_apply(lie.sim3_inv(Sx), X1))[0] - uv2
         return r_fwd, r_inv
@@ -175,15 +175,15 @@ def optimize_sim3(
                 jnp.repeat(w_inv * active, 2),
             ]
         )
-        H = J.T @ (J * w[:, None])
-        b = J.T @ (r * w)
+        H = lie.mm(J.T, J * w[:, None])
+        b = lie.mm(J.T, r * w)
         if fix_scale:
             # zero out the scale direction (6-DoF mode, Optimizer.cc:770 analog)
             H = H.at[6, :].set(0.0).at[:, 6].set(0.0).at[6, 6].set(1.0)
             b = b.at[6].set(0.0)
         H = H + 1e-6 * jnp.eye(7)
         dx = -jnp.linalg.solve(H, b)
-        return lie.sim3_exp(dx) @ S
+        return lie.mm(lie.sim3_exp(dx), S)
 
     active0 = valid.astype(jnp.float32)
     S = jax.lax.fori_loop(
@@ -200,5 +200,5 @@ def optimize_sim3(
     # renormalize the rotation block drift from repeated exp-compositions
     Rb, tb, sb = lie.sim3_Rts(S)
     U, _, Vt = jnp.linalg.svd(Rb)
-    S = lie.sim3_from_Rts(U @ Vt, tb, jnp.where(fix_scale, 1.0, sb))
+    S = lie.sim3_from_Rts(lie.mm(U, Vt), tb, jnp.where(fix_scale, 1.0, sb))
     return Sim3OptResult(S, inl, jnp.sum(inl))

@@ -47,7 +47,7 @@ class TrackingConfig:
     align_min_level: int = 2
     align_min_level_kf: int = 4  # KF<->KF loop check: coarsest level only
     align_iters: int = 30
-    # GN/LM iteration schedules. Defaults are the trimmed TPU schedules
+    # GN/LM iteration schedules. Defaults are trimmed schedules
     # (every solve starts from the previous refined state at frame/KF
     # cadence); the reference's longer schedules — pose 4 rounds x 10
     # (Optimizer.cc:343-407), local BA 5+10 (:608-653) — are available for
@@ -59,7 +59,7 @@ class TrackingConfig:
 
 @dataclass(frozen=True)
 class MapConfig:
-    """Fixed-capacity pools for the array-resident map (the TPU-native
+    """Fixed-capacity pools for the array-resident map (the array
     replacement for the reference's dynamically allocated KeyFrame/MapPoint
     pointer graph)."""
 

@@ -63,7 +63,7 @@ class StageTimes:
 
 class FrameMetrics:
     """Structured per-frame metrics (inliers, timings, map size) with JSONL
-    export — the TPU build's replacement for LOGD state lines."""
+    export — this build's replacement for LOGD state lines."""
 
     def __init__(self):
         self.rows: List[dict] = []

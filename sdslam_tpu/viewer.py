@@ -3,7 +3,7 @@
 Replaces the reference's Pangolin UI stack (src/ui/{Viewer,FrameDrawer,
 MapDrawer,Plane}) with headless renders: the map/trajectory view and the
 frame overlay are drawn with matplotlib into PNG files (or returned as
-arrays), which suits TPU pods where no GL display exists.  The AR plane RANSAC
+arrays), which suits headless accelerator hosts with no GL display.  The AR plane RANSAC
 (FrameDrawer::DetectPlane, Plane.cc:52-58) is a small numpy routine.
 """
 

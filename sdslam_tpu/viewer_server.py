@@ -1,7 +1,7 @@
 """Live web viewer: the interactive counterpart of the headless renderer.
 
 The reference opens a Pangolin GL window with map/frame views and menu
-buttons (/root/reference/src/ui/Viewer.cc:68-120). TPU pods are headless,
+buttons (reference src/ui/Viewer.cc:68-120). Accelerator hosts are often headless,
 so the live UI here is a zero-dependency HTTP server (stdlib http.server)
 that any browser can watch while a CLI run or StreamRunner is tracking:
 

@@ -162,3 +162,85 @@ def test_local_ba_prefuse_inc_matches_fallback(rng):
     # and both actually improved toward ground truth
     et_inc, _ = pose_errs(T_inc[5], T_gt[5])
     assert et_inc < 5e-3
+
+
+def _dense_normal_equations(ms, n_kf, n_pt):
+    """float64 reference: the full [6K+3P] Gauss-Newton system from
+    finite-difference Jacobians (left camera perturbation exp(d) T,
+    additive point step) of the residual (u, v, u_r)."""
+    from scipy.linalg import expm
+
+    T = np.asarray(ms.kf_Tcw, np.float64)[:n_kf]
+    X = np.asarray(ms.pt_pos, np.float64)[:n_pt]
+    uv = np.asarray(ms.kf_uv_und, np.float64)
+    ur = np.asarray(ms.kf_uright, np.float64)
+    mp = np.asarray(ms.kf_mp)
+
+    def res(Tk, Xp, k, n):
+        Xc = Tk[:3, :3] @ Xp + Tk[:3, 3]
+        u = CAM.fx * Xc[0] / Xc[2] + CAM.cx
+        v = CAM.fy * Xc[1] / Xc[2] + CAM.cy
+        # a negative u_r marks a mono observation: no third residual
+        r2 = u - CAM.bf / Xc[2] - ur[k, n] if ur[k, n] >= 0 else 0.0
+        return np.array([u - uv[k, n, 0], v - uv[k, n, 1], r2])
+
+    def twist(d):
+        A = np.zeros((4, 4))
+        A[:3, :3] = [[0, -d[5], d[4]], [d[5], 0, -d[3]], [-d[4], d[3], 0]]
+        A[:3, 3] = d[:3]
+        return expm(A)
+
+    dim = 6 * n_kf + 3 * n_pt
+    H = np.zeros((dim, dim))
+    b = np.zeros(dim)
+    eps = 1e-6
+    for k in range(n_kf):
+        for n in np.flatnonzero(mp[k] >= 0):
+            p = mp[k, n]
+            r0 = res(T[k], X[p], k, n)
+            J = np.zeros((3, dim))
+            for i in range(6):
+                d = np.zeros(6)
+                d[i] = eps
+                J[:, 6 * k + i] = (res(twist(d) @ T[k], X[p], k, n)
+                                   - res(twist(-d) @ T[k], X[p], k, n)) / (2 * eps)
+            for i in range(3):
+                d = np.zeros(3)
+                d[i] = eps
+                J[:, 6 * n_kf + 3 * p + i] = (res(T[k], X[p] + d, k, n)
+                                              - res(T[k], X[p] - d, k, n)) / (2 * eps)
+            H += J.T @ J
+            b -= J.T @ r0
+    return H, b
+
+
+def test_schur_terms_match_dense_normal_equations():
+    """_schur_terms (the one BA assembly path) against the dense normal
+    equations of test_ba's problem: the reduced camera system S and its
+    right-hand side equal Hcc - Hcp Hpp^-1 Hpc and bc - Hcp Hpp^-1 bp."""
+    rng = np.random.default_rng(17)
+    ms, _, _, n_kf, n_pt = make_ba_problem(rng, n_pt=60, noise_px=0.5,
+                                           stereo=True)
+    obs_kf, obs_kp = M.build_obs_lists(ms, 16)
+    es = ba._prep_edges(obs_kf, obs_kp, ms.kf_uv_und, ms.kf_uright,
+                        ms.kf_octave, 2.0, ms.K)
+    lam = 1e-6
+    S0, bs, *_ = ba._schur_terms(
+        CAM, ms.kf_Tcw, ms.pt_pos, es, obs_kf >= 0, ms.kf_valid,
+        ms.pt_valid, False, lam,
+    )
+    H, b = _dense_normal_equations(ms, n_kf, n_pt)
+    C = 6 * n_kf
+    Hpp = H[C:, C:].copy()
+    for p in range(n_pt):  # the same per-point damping as _schur_terms
+        blk = slice(3 * p, 3 * p + 3)
+        tr = np.trace(Hpp[blk, blk])
+        Hpp[blk, blk] += (lam * max(tr / 3.0, 1e-8) + 1e-9) * np.eye(3)
+    Hcp = H[:C, C:]
+    S_ref = H[:C, :C] - Hcp @ np.linalg.solve(Hpp, Hcp.T)
+    b_ref = b[:C] - Hcp @ np.linalg.solve(Hpp, b[C:])
+    S = np.asarray(S0, np.float64)[:C, :C]
+    scale = np.abs(S_ref).max()
+    np.testing.assert_allclose(S, S_ref, atol=2e-4 * scale)
+    np.testing.assert_allclose(np.asarray(bs, np.float64)[:n_kf].ravel(),
+                               b_ref, atol=2e-4 * np.abs(b_ref).max())

@@ -1,5 +1,5 @@
 """Live V4L2 camera front-end: conversion + ABI unit tests; real-device
-capture runs only when /dev/video0 exists (it does not on TPU pods)."""
+capture runs only when /dev/video0 exists (it does not on headless hosts)."""
 
 import os
 

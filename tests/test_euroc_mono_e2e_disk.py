@@ -94,7 +94,8 @@ def test_cli_monocular_euroc_kidnap_reloc(tmp_path):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    env["SDSLAM_JAX_CACHE"] = "/root/.jax_cache_cpu"
+    # the subprocess keeps its compile cache in the checkout (.jax_cache)
+    env.pop("SDSLAM_JAX_CACHE", None)
     proc = subprocess.run(
         [sys.executable, "-m", "sdslam_tpu.cli", "monocular", str(cfg_path),
          str(root), "--traj-out", str(traj_out), "--no-loop-closing"],

@@ -97,12 +97,10 @@ def test_cli_synthetic_smoke(tmp_path):
 
 
 def test_native_extension_matches_python():
-    try:
-        from sdslam_tpu import _native
-    except ImportError:
-        import pytest
+    from sdslam_tpu import native
 
-        pytest.skip("native extension not built")
+    _native = native.load()
+    assert _native is not None, "native extension failed to build"
     a = [(1.0, "a0"), (2.0, "a1"), (3.0, "a2"), (4.0, "a3")]
     b = [(1.009, "b0"), (2.5, "bx"), (3.001, "b2"), (4.019, "b3")]
     out = datasets.associate(a, b, max_difference=0.02)

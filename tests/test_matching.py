@@ -2,6 +2,7 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from sdslam_tpu.features import matching
 from sdslam_tpu.features.frame import ORBExtractor, make_frame
@@ -32,6 +33,22 @@ def test_hamming_matrix_against_numpy(rng):
     np.testing.assert_array_equal(d, ref)
     # identical descriptors -> 0
     assert np.asarray(ham.hamming_vec(a, a)).max() == 0
+
+
+@pytest.mark.parametrize("qa,qb", [(1, 1), (300, 200), (257, 1031)])
+def test_hamming_matrix_shapes_against_numpy(qa, qb):
+    """The one dense Hamming form at odd and matcher-like shapes, bit-exact
+    against a numpy popcount oracle (extreme words included)."""
+    rng = np.random.default_rng(qa * 7919 + qb)
+    a = np.array(rand_desc(rng, qa))
+    b = np.array(rand_desc(rng, qb))
+    a[0] = 0
+    b[-1] = np.uint32(0xFFFFFFFF)
+    d = np.asarray(ham.hamming_matrix(jnp.asarray(a), jnp.asarray(b)))
+    x = np.bitwise_xor(a[:, None, :], b[None, :, :])
+    ref = np.unpackbits(x.view(np.uint8), axis=-1).sum(axis=-1)
+    assert d.dtype == np.int32 and d.shape == (qa, qb)
+    np.testing.assert_array_equal(d, ref)
 
 
 def test_best2_and_resolve(rng):

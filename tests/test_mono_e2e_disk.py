@@ -64,7 +64,8 @@ def test_cli_monocular_on_disk_sequence(tmp_path):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    env["SDSLAM_JAX_CACHE"] = "/root/.jax_cache_cpu"
+    # the subprocess keeps its compile cache in the checkout (.jax_cache)
+    env.pop("SDSLAM_JAX_CACHE", None)
     proc = subprocess.run(
         # loop closing off for the same reason as the rgbd disk e2e: the
         # detection program is minutes per KF event on a 2-core CPU host

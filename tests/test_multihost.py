@@ -1,5 +1,6 @@
 """Multi-host distributed layer: 2 processes x 4 virtual CPU devices over
-localhost TCP (the DCN stand-in), one process-spanning mesh.
+localhost TCP (standing in for the network between hosts), one
+process-spanning mesh.
 
 The worker (scripts/multihost_worker.py) runs distributed BA and the
 distributed Sim3 pose graph over the global mesh and checks equivalence

@@ -1,130 +1,105 @@
-"""Pallas kernels vs their XLA reference implementations (interpret mode on
-CPU; compiled path exercised on TPU by the bench)."""
+"""The pose-solve Pallas kernel (Triton route) against the XLA path it
+replaces on the card, and the per-level alignment loop (plain XLA: its
+Triton kernel compiled too slowly to keep) against a known motion. Here the
+kernel runs in interpret mode; chip_smoke.py compiles it for the card and
+repeats the comparison at the tracker's width."""
 
-import functools
-import numpy as np
 import jax
 import jax.numpy as jnp
+import numpy as np
+import pytest
 
-from sdslam_tpu.ops import hamming as ham
-from sdslam_tpu.ops.pallas import align_kernel, hamming_kernel
+from sdslam_tpu.geometry import lie
+from sdslam_tpu.geometry.camera import CameraModel
+from sdslam_tpu.ops.pallas import checks
+from sdslam_tpu.ops.pallas import pose_kernel as pk
+from sdslam_tpu.solvers import image_align as ia
+from sdslam_tpu.solvers import pose_opt
 
-
-def test_hamming_kernel_matches_xla(rng):
-    a = jnp.asarray(rng.integers(0, 2**32, size=(200, 8), dtype=np.uint64).astype(np.uint32))
-    b = jnp.asarray(rng.integers(0, 2**32, size=(150, 8), dtype=np.uint64).astype(np.uint32))
-    ref = np.asarray(ham.hamming_matrix(a, b))
-    out = np.asarray(hamming_kernel.hamming_matrix_pallas(a, b, interpret=True))
-    np.testing.assert_array_equal(out, ref)
-
-
-def test_align_kernel_matches_xla(rng):
-    from sdslam_tpu.ops import interp
-
-    H, W = 120, 160
-    img = jnp.asarray(rng.uniform(0, 255, (H, W)).astype(np.float32))
-    N = 200
-    fx = fy = 80.0
-    cx, cy = 79.5, 59.5
-    Xc = rng.uniform([-0.8, -0.6, 1.0], [0.8, 0.6, 3.0], size=(N, 3)).astype(np.float32)
-    patch = rng.uniform(0, 255, (N, 16)).astype(np.float32)
-    J = rng.normal(size=(N, 16, 6)).astype(np.float32) * 0.01
-    valid = rng.uniform(size=N) > 0.2
-    okpx = valid[:, None] & (rng.uniform(size=(N, 16)) > 0.1)
-
-    b, chi, n = align_kernel.accumulate_gn(
-        img, jnp.asarray(Xc), jnp.asarray(patch), jnp.asarray(J),
-        jnp.asarray(okpx), fx, fy, cx, cy, interpret=True,
-    )
-
-    # XLA reference (mirrors solvers/image_align residual math, including
-    # patch ordering dy-outer/dx-inner — _patch_offsets meshgrid order)
-    z = Xc[:, 2]
-    u = fx * Xc[:, 0] / np.maximum(z, 1e-6) + cx
-    v = fy * Xc[:, 1] / np.maximum(z, 1e-6) + cy
-    d = np.arange(16)
-    dx = (d % 4) - 2.0
-    dy = (d // 4) - 2.0
-    uv = np.stack([u[:, None] + dx, v[:, None] + dy], -1).astype(np.float32)
-    cur, ok = interp.bilinear_sample(img, jnp.asarray(uv))
-    m = np.asarray(ok) & okpx & (z > 0.01)[:, None]
-    r = np.where(m, (np.asarray(cur) - patch) / 255.0, 0.0)
-    Jm = np.where(m[:, :, None], J, 0.0)
-    b_ref = np.einsum("tpi,tp->i", Jm, r)
-    np.testing.assert_allclose(np.asarray(b), b_ref, rtol=2e-3, atol=1e-4)
-    np.testing.assert_allclose(float(chi), (r * r).sum(), rtol=1e-3)
-    assert int(n) == int(m.sum())
+POSE_CAM = (400.0, 400.0, 160.0, 120.0, 40.0)
 
 
-def test_ba_edge_kernel_matches_xla_gn():
-    """The fused BA edge kernel (interpret mode) must reproduce the XLA
-    fallback's GN step outputs on a random BA problem."""
-    import sys, os
-    sys.path.insert(0, os.path.dirname(__file__))
-    from test_ba import CAM, make_ba_problem
-
-    from sdslam_tpu.mapping import map_state as M
-    from sdslam_tpu.solvers import ba
-
-    # own deterministic generator: the session rng's state (and thus the
-    # problem conditioning) would depend on test order, and the post-solve
-    # comparison tolerance is conditioning-sensitive
-    rng = np.random.default_rng(7)
-    ms, T_gt, X_gt, n_kf, n_pt = make_ba_problem(rng, noise_px=0.5, stereo=True)
-    obs_kf, obs_kp = M.build_obs_lists(ms, 16)
-    obs_ok = obs_kf >= 0
-    es = ba._prep_edges(
-        obs_kf, obs_kp, ms.kf_uv_und, ms.kf_uright, ms.kf_octave, 2.0, ms.K
-    )
-    cam_active = ms.kf_valid.at[0].set(False)
-
-    # force each path through the module gate
-    ba._EDGE_KERNEL = False
-    T_x, X_x, c_x = ba._gn_iteration(
-        CAM, ms.kf_Tcw, ms.pt_pos, es, obs_ok, cam_active, ms.pt_valid,
-        2.0, True, 1e-4,
-    )
-    orig_terms = ba.bsk.ba_edge_schur
-    ba.bsk.ba_edge_schur = functools.partial(orig_terms, interpret=True)
-    ba._EDGE_KERNEL = True
-    try:
-        T_p, X_p, c_p = ba._gn_iteration(
-            CAM, ms.kf_Tcw, ms.pt_pos, es, obs_ok, cam_active, ms.pt_valid,
-            2.0, True, 1e-4,
-        )
-    finally:
-        ba.bsk.ba_edge_schur = orig_terms
-        ba._EDGE_KERNEL = None
-
-    np.testing.assert_allclose(np.asarray(c_p), np.asarray(c_x), rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(T_p), np.asarray(T_x), atol=5e-5)
-    # X tolerance is looser than T: the kernel folds Linv into the Z-scatter
-    # AFTER the per-point m-sum while the XLA path folds per-edge before it —
-    # identical math, different f32 summation order, amplified through the
-    # solve on the worst-conditioned points (~1e-4 on 2/1536 elements)
-    np.testing.assert_allclose(np.asarray(X_p), np.asarray(X_x), atol=3e-4)
+def _pose_inputs(seed, N=256, stereo_frac=0.5):
+    rng = np.random.default_rng(seed)
+    (fx, fy, cx, cy, bf), X, uv, ur, isig, valid, T_true = checks.pose_problem(
+        rng, N=N, n_outlier=max(1, N // 12), stereo_frac=stereo_frac,
+        cam=POSE_CAM)
+    cam = CameraModel(fx=fx, fy=fy, cx=cx, cy=cy, width=320, height=240,
+                      bf=bf)
+    arrays = tuple(jnp.asarray(a) for a in (X, uv, isig, valid, ur))
+    return cam, arrays, T_true
 
 
-def test_fused_align_level_matches_xla_loop():
-    """align_level (whole GN loop in one launch, interpret mode) must
-    converge to the XLA per-iteration loop's pose on a planar photometric
-    problem — same math, same stopping rule (ImageAlign.cc:234-279)."""
-    from sdslam_tpu.geometry import lie
-    from sdslam_tpu.solvers import image_align as ia
+def _pose_both(cam, arrays, T0, T_prior, rot_info, trans_info, rounds=4,
+               iters=10):
+    X, uv, isig, valid, ur = arrays
+    rx = pose_opt._optimize_pose_xla(
+        cam, T0, X, uv, isig, valid, ur, rounds, iters, T_prior,
+        jnp.float32(rot_info), jnp.float32(trans_info))
+    Tp_inv = (lie.se3_inv(T_prior) if T_prior is not None
+              else jnp.eye(4, dtype=jnp.float32))
+    edges, scal = pk.pack(X, uv, ur, isig, valid, T0, Tp_inv, trans_info,
+                          rot_info)
+    out, inl = pk.pose_solve(cam, edges, scal, rounds, iters,
+                             T_prior is not None, interpret=True)
+    T = np.eye(4, dtype=np.float32)
+    T[:3] = np.asarray(out[:12]).reshape(3, 4)
+    T = np.asarray(lie.se3_normalize(jnp.asarray(T)))
+    return rx, T, np.asarray(inl)[: X.shape[0]] > 0, out
 
-    rng = np.random.default_rng(3)
-    H, W = 120, 160
-    fx = fy = 120.0
-    cx, cy = 79.5, 59.5
 
-    # world texture on the z=2 plane, smooth broadband
+def test_pose_kernel_matches_xla():
+    """The whole-solve pose kernel must reproduce the XLA optimize_pose:
+    same rounds/iters/Huber/reclassification/prior math."""
+    cam, arrays, T_true = _pose_inputs(11)
+    T0 = jnp.asarray(np.asarray(lie.se3_exp(jnp.asarray(
+        [0.04, -0.02, 0.07, 0.015, -0.012, 0.008], jnp.float32))))
+    rx, T, inl, out = _pose_both(cam, arrays, T0, T0, 100.0, 4.0)
+    for Tc in (np.asarray(rx.Tcw), T):
+        err = np.asarray(lie.se3_log(jnp.asarray(Tc @ np.linalg.inv(T_true))))
+        # the deliberately-offset prior (trans_info=4) pulls the optimum a
+        # little off truth by design; parity below is the real assertion
+        assert np.linalg.norm(err[:3]) < 4e-3, err
+    np.testing.assert_allclose(T, np.asarray(rx.Tcw), atol=5e-5)
+    assert int(out[12]) == int(rx.n_inliers)
+    np.testing.assert_array_equal(inl, np.asarray(rx.inliers))
+    np.testing.assert_allclose(float(out[13]), float(rx.chi2), rtol=1e-3)
+
+
+def test_pose_kernel_mono_no_prior():
+    """Mono-only edges, no prior term (has_prior=False kernel branch)."""
+    cam, arrays, _ = _pose_inputs(5, stereo_frac=0.0)
+    T0 = jnp.asarray(np.asarray(lie.se3_exp(jnp.asarray(
+        [0.045, -0.025, 0.075, 0.018, -0.013, 0.009], jnp.float32))))
+    rx, T, inl, out = _pose_both(cam, arrays, T0, None, 0.0, 0.0)
+    np.testing.assert_allclose(T, np.asarray(rx.Tcw), atol=5e-5)
+    assert int(out[12]) == int(rx.n_inliers)
+
+
+@pytest.mark.parametrize("N", [100, 257, 512])
+def test_pose_kernel_padding(N):
+    """Edge counts that are not powers of two are padded with invalid
+    edges, which must change nothing; the tracker's short schedule."""
+    cam, arrays, _ = _pose_inputs(N, N=N)
+    edges, _ = pk.pack(*(arrays[i] for i in (0, 1, 4, 2, 3)), jnp.eye(4),
+                       jnp.eye(4), 0.0, 0.0)
+    n_pad = edges.shape[1]
+    assert n_pad >= N and n_pad & (n_pad - 1) == 0
+    assert not np.asarray(edges[7, N:]).any()  # padding edges invalid
+    T0 = jnp.asarray(np.asarray(lie.se3_exp(jnp.asarray(
+        [0.03, -0.02, 0.05, 0.01, -0.01, 0.005], jnp.float32))))
+    rx, T, inl, out = _pose_both(cam, arrays, T0, T0, 50.0, 2.0, rounds=2,
+                                 iters=5)
+    np.testing.assert_allclose(T, np.asarray(rx.Tcw), atol=5e-5)
+    np.testing.assert_array_equal(inl, np.asarray(rx.inliers))
+
+
+def _plane_scene(rng, H, W, fx, fy, cx, cy, N, T_true):
+    """Textured plane at z=2 seen from identity and from T_true, with N
+    keypoints: returns (img_ref, img_cur, uv [N,2], X_ref [N,3])."""
     freqs = rng.uniform(0.5, 12.0, (24, 2))
     phases = rng.uniform(0, 2 * np.pi, 24)
     amps = 1.0 / np.sqrt(freqs[:, 0] ** 2 + freqs[:, 1] ** 2)
-
-    def tex(xy):
-        ph = xy @ freqs.T + phases
-        return 128.0 + 60.0 * (np.sin(ph) @ amps) / np.abs(amps).sum()
 
     def render(Tcw):
         u, v = np.meshgrid(np.arange(W, dtype=np.float64),
@@ -133,178 +108,74 @@ def test_fused_align_level_matches_xla_loop():
         d = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u)], -1)
         dw = d @ Twc[:3, :3].T
         o = Twc[:3, 3]
-        t = (2.0 - o[2]) / dw[..., 2]
-        X = o + t[..., None] * dw
-        return tex(X[..., :2]).astype(np.float32)
+        Xw = o + ((2.0 - o[2]) / dw[..., 2])[..., None] * dw
+        ph = Xw[..., :2] @ freqs.T + phases
+        return (128.0 + 60.0 * (np.sin(ph) @ amps) / np.abs(amps).sum()
+                ).astype(np.float32)
 
-    T_true = np.asarray(lie.se3_exp(jnp.asarray(
-        [0.01, -0.008, 0.012, 0.004, -0.003, 0.002], jnp.float32)))
-    img_ref = render(np.eye(4))
-    img_cur = render(T_true)
-
-    N = 300
     uv = rng.uniform([8, 8], [W - 9, H - 9], (N, 2)).astype(np.float32)
     z = np.full((N,), 2.0, np.float32)
     X = np.stack([(uv[:, 0] - cx) / fx * z, (uv[:, 1] - cy) / fy * z, z], -1)
-    valid = jnp.ones((N,), bool)
-
-    patch, J, ok = ia._precompute_level(
-        jnp.asarray(img_ref), jnp.asarray(uv), jnp.asarray(X), valid, fx, fy
-    )
-    T0 = jnp.eye(4, dtype=jnp.float32)
-
-    saved = ia._ALIGN_KERNEL
-    try:
-        ia._ALIGN_KERNEL = False
-        T_x, chi_x, n_x = ia._align_level(
-            jnp.asarray(img_cur), T0, jnp.asarray(X), patch, J, ok,
-            fx, fy, cx, cy, 30)
-        ia._ALIGN_KERNEL = True  # force the kernel gate on CPU
-        T_f, chi_f, n_f = ia._align_level(
-            jnp.asarray(img_cur), T0, jnp.asarray(X), patch, J, ok,
-            fx, fy, cx, cy, 30, fused=True)
-    finally:
-        ia._ALIGN_KERNEL = saved
-
-    # both converge to the true motion
-    err_x = np.asarray(lie.se3_log(jnp.asarray(
-        np.asarray(T_x) @ np.linalg.inv(T_true))))
-    err_f = np.asarray(lie.se3_log(jnp.asarray(
-        np.asarray(T_f) @ np.linalg.inv(T_true))))
-    assert np.linalg.norm(err_x[:3]) < 2e-3
-    assert np.linalg.norm(err_f[:3]) < 2e-3
-    # and to (nearly) the same iterate
-    np.testing.assert_allclose(np.asarray(T_f), np.asarray(T_x), atol=2e-4)
-    assert abs(float(chi_f) - float(chi_x)) < 1e-4
+    return render(np.eye(4)), render(T_true), uv, X
 
 
-def _pose_problem(rng, N=256, n_outlier=20, stereo_frac=0.5):
-    from sdslam_tpu.geometry import lie
-
-    fx = fy = 400.0
-    cx, cy = 160.0, 120.0
-    bf = 40.0
-    X = rng.uniform([-1.5, -1.0, 2.0], [1.5, 1.0, 6.0], (N, 3)).astype(np.float32)
+def _align_inputs(seed, N):
+    rng = np.random.default_rng(seed)
+    H, W, f, cx, cy = 120, 160, 120.0, 79.5, 59.5
     T_true = np.asarray(lie.se3_exp(jnp.asarray(
-        [0.05, -0.03, 0.08, 0.02, -0.015, 0.01], jnp.float32)))
-    Xc = X @ T_true[:3, :3].T + T_true[:3, 3]
-    u = fx * Xc[:, 0] / Xc[:, 2] + cx
-    v = fy * Xc[:, 1] / Xc[:, 2] + cy
-    uv = np.stack([u, v], -1) + rng.normal(0, 0.4, (N, 2))
-    ur = u - bf / Xc[:, 2] + rng.normal(0, 0.4, N)
-    ur = np.where(rng.uniform(size=N) < stereo_frac, ur, -1.0)
-    # gross outliers
-    out_idx = rng.choice(N, n_outlier, replace=False)
-    uv[out_idx] += rng.normal(0, 30.0, (n_outlier, 2))
-    oct_ = rng.integers(0, 4, N)
-    isig = (1.0 / 2.0 ** (2.0 * oct_)).astype(np.float32)
-    valid = rng.uniform(size=N) > 0.1
-    return (fx, fy, cx, cy, bf), X, uv.astype(np.float32), ur.astype(np.float32), isig, valid, T_true
+        [0.01, -0.008, 0.012, 0.004, -0.003, 0.002], jnp.float32)))
+    img_ref, img_cur, uv, X = _plane_scene(rng, H, W, f, f, cx, cy, N,
+                                           T_true)
+    patch, J, ok = ia._precompute_level(
+        jnp.asarray(img_ref), jnp.asarray(uv), jnp.asarray(X),
+        jnp.ones((N,), bool), f, f)
+    args = (jnp.asarray(img_cur), jnp.eye(4, dtype=jnp.float32),
+            jnp.asarray(X), patch, J, ok)
+    return args, (f, f, cx, cy), T_true
 
 
-def test_pose_kernel_matches_xla():
-    """The whole-solve pose kernel (interpret mode) must reproduce the XLA
-    optimize_pose: same rounds/iters/Huber/reclassification/prior math."""
-    from sdslam_tpu.geometry.camera import CameraModel
-    from sdslam_tpu.geometry import lie
-    from sdslam_tpu.solvers import pose_opt
-
-    rng = np.random.default_rng(11)
-    (fx, fy, cx, cy, bf), X, uv, ur, isig, valid, T_true = _pose_problem(rng)
-    cam = CameraModel(fx=fx, fy=fy, cx=cx, cy=cy, width=320, height=240, bf=bf)
-    T0 = np.asarray(lie.se3_exp(jnp.asarray(
-        [0.04, -0.02, 0.07, 0.015, -0.012, 0.008], jnp.float32)))
-    T_prior = jnp.asarray(T0)
-
-    saved = pose_opt._POSE_KERNEL
-    try:
-        pose_opt._POSE_KERNEL = False
-        rx = pose_opt.optimize_pose(
-            cam, jnp.asarray(T0), jnp.asarray(X), jnp.asarray(uv),
-            jnp.asarray(isig), jnp.asarray(valid), ur_obs=jnp.asarray(ur),
-            T_prior=T_prior, prior_rot_info=100.0, prior_trans_info=4.0,
-        )
-        pose_opt._POSE_KERNEL = True  # force the kernel gate on CPU
-        rf = pose_opt.optimize_pose(
-            cam, jnp.asarray(T0), jnp.asarray(X), jnp.asarray(uv),
-            jnp.asarray(isig), jnp.asarray(valid), ur_obs=jnp.asarray(ur),
-            T_prior=T_prior, prior_rot_info=100.0, prior_trans_info=4.0,
-            fused=True,
-        )
-    finally:
-        pose_opt._POSE_KERNEL = saved
-
-    # both recover the true pose
-    for r in (rx, rf):
-        err = np.asarray(lie.se3_log(jnp.asarray(
-            np.asarray(r.Tcw) @ np.linalg.inv(T_true))))
-        # the deliberately-offset prior (trans_info=4) pulls the optimum a
-        # little off truth by design; parity below is the real assertion
-        assert np.linalg.norm(err[:3]) < 4e-3, err
-    np.testing.assert_allclose(np.asarray(rf.Tcw), np.asarray(rx.Tcw), atol=5e-5)
-    assert int(rf.n_inliers) == int(rx.n_inliers)
-    np.testing.assert_array_equal(np.asarray(rf.inliers), np.asarray(rx.inliers))
-    np.testing.assert_allclose(float(rf.chi2), float(rx.chi2), rtol=1e-3)
+def _motion_error(T, T_true):
+    err = np.asarray(lie.se3_log(jnp.asarray(
+        np.asarray(T) @ np.linalg.inv(T_true))))
+    return float(np.linalg.norm(err[:3])), float(np.linalg.norm(err[3:]))
 
 
-def test_pose_kernel_mono_no_prior():
-    """Mono-only edges, no prior term (has_prior=False kernel branch)."""
-    from sdslam_tpu.geometry.camera import CameraModel
-    from sdslam_tpu.geometry import lie
-    from sdslam_tpu.solvers import pose_opt
-
-    rng = np.random.default_rng(5)
-    (fx, fy, cx, cy, bf), X, uv, ur, isig, valid, T_true = _pose_problem(
-        rng, stereo_frac=0.0)
-    cam = CameraModel(fx=fx, fy=fy, cx=cx, cy=cy, width=320, height=240, bf=bf)
-    T0 = np.asarray(lie.se3_exp(jnp.asarray(
-        [0.045, -0.025, 0.075, 0.018, -0.013, 0.009], jnp.float32)))
-    saved = pose_opt._POSE_KERNEL
-    try:
-        pose_opt._POSE_KERNEL = False
-        rx = pose_opt.optimize_pose(
-            cam, jnp.asarray(T0), jnp.asarray(X), jnp.asarray(uv),
-            jnp.asarray(isig), jnp.asarray(valid), ur_obs=jnp.asarray(ur),
-        )
-        pose_opt._POSE_KERNEL = True
-        rf = pose_opt.optimize_pose(
-            cam, jnp.asarray(T0), jnp.asarray(X), jnp.asarray(uv),
-            jnp.asarray(isig), jnp.asarray(valid), ur_obs=jnp.asarray(ur),
-            fused=True,
-        )
-    finally:
-        pose_opt._POSE_KERNEL = saved
-    np.testing.assert_allclose(np.asarray(rf.Tcw), np.asarray(rx.Tcw), atol=5e-5)
-    assert int(rf.n_inliers) == int(rx.n_inliers)
+@pytest.mark.parametrize("N", [37, 300, 1000])
+def test_align_level_recovers_true_motion(N):
+    """One level's GN loop (ImageAlign.cc:234-279) recovers the known
+    motion of a textured plane from identity, at the tracker's point count
+    (300) and at counts well below and above it."""
+    args, intr, T_true = _align_inputs(N, N)
+    T, chi2, n = jax.jit(lambda *a: ia._align_level(*a, *intr, 30))(*args)
+    t_err, r_err = _motion_error(T, T_true)
+    t0, _ = _motion_error(np.eye(4), T_true)
+    assert t_err < 2e-3 and r_err < 2e-3 and t_err < 0.2 * t0
+    assert float(chi2) < 1e-4
+    assert 0 < int(n) <= 16 * N
 
 
-def test_chol_solve_kernel_matches_lapack(rng):
-    """The fused dense Cholesky factor+solve kernel (interpret mode) must
-    reproduce cho_factor/cho_solve on SPD systems, including the
-    non-8-multiple padding path (N=30) and the production [144,144]."""
-    from sdslam_tpu.ops.pallas import chol_kernel as ck
+def test_align_level_under_vmap():
+    """The relocalization and loop-detection scans vmap the aligner: the
+    batched loop must give each alignment its own result."""
+    a1, intr, _ = _align_inputs(21, 64)
+    a2, _, _ = _align_inputs(22, 64)
+    batched = tuple(jnp.stack([u, v]) for u, v in zip(a1, a2))
+    Tb, chib, nb = jax.vmap(
+        lambda *a: ia._align_level(*a, *intr, 6))(*batched)
+    for k, a in enumerate((a1, a2)):
+        T, chi, n = ia._align_level(*a, *intr, 6)
+        np.testing.assert_allclose(np.asarray(Tb[k]), np.asarray(T),
+                                   atol=1e-6)
+        assert int(nb[k]) == int(n)
 
-    for N in (30, 144):
-        A = rng.normal(0, 1, (N, N)).astype(np.float32)
-        S = jnp.asarray(A @ A.T + N * np.eye(N, dtype=np.float32))
-        b = jnp.asarray(rng.normal(0, 1, N).astype(np.float32))
-        x = np.asarray(ck.chol_solve_dense(S, b, interpret=True))
-        L = jax.scipy.linalg.cho_factor(S, lower=True)
-        ref = np.asarray(jax.scipy.linalg.cho_solve(L, b))
-        np.testing.assert_allclose(x, ref, rtol=2e-4, atol=2e-5)
 
-
-def test_mxu_hamming_matches_vpu(rng):
-    """The int8-MXU hamming_matrix path (production on TPU) must equal the
-    VPU xor+popcount oracle exactly."""
-    a = jnp.asarray(rng.integers(0, 2**32, size=(300, 8), dtype=np.uint64).astype(np.uint32))
-    b = jnp.asarray(rng.integers(0, 2**32, size=(200, 8), dtype=np.uint64).astype(np.uint32))
-    saved = ham._MXU_HAMMING
-    try:
-        ham._MXU_HAMMING = False
-        ref = np.asarray(ham.hamming_matrix(a, b))
-        ham._MXU_HAMMING = True  # force the MXU formulation on CPU
-        out = np.asarray(ham.hamming_matrix(a, b))
-    finally:
-        ham._MXU_HAMMING = saved
-    np.testing.assert_array_equal(out, ref)
+def test_cpu_dispatch_runs_xla_path():
+    """Off the card, optimize_pose lowers the XLA branch: results are
+    bit-identical to calling it directly."""
+    cam, (X, uv, isig, valid, ur), _ = _pose_inputs(3, N=128)
+    T0 = jnp.eye(4, dtype=jnp.float32)
+    r = pose_opt.optimize_pose(cam, T0, X, uv, isig, valid, ur_obs=ur,
+                               rounds=2, iters_per_round=3)
+    rx = pose_opt._optimize_pose_xla(cam, T0, X, uv, isig, valid, ur, 2, 3,
+                                     None, 0.0, 0.0)
+    np.testing.assert_array_equal(np.asarray(r.Tcw), np.asarray(rx.Tcw))

@@ -70,8 +70,8 @@ def test_cli_rgbd_on_disk_tum_sequence(tmp_path):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    # share the test session's CPU compile cache with the subprocess
-    env["SDSLAM_JAX_CACHE"] = "/root/.jax_cache_cpu"
+    # the subprocess keeps its compile cache in the checkout (.jax_cache)
+    env.pop("SDSLAM_JAX_CACHE", None)
     proc = subprocess.run(
         # loop closing off: the detection program vmaps the whole KF pool
         # at 640x480 — minutes per keyframe event on a 2-core CPU CI host
